@@ -1,5 +1,5 @@
 """The port on an NVIDIA card: each CUDA kernel against its plain version,
-and the sort and the Sorter against numpy oracles.
+and the sort and the Sorter, network and radix, against numpy oracles.
 
 Every test here is marked `cuda` and skips with a reason on a host without
 a card (decided in the fixture, never at import). The file imports neither
@@ -15,9 +15,13 @@ import pytest
 import torch
 
 import vulkan_radix_sort_tpu_torch as vrs
-from vulkan_radix_sort_tpu_torch.config import CHUNK_CARRY, CHUNK_KEYS
+from vulkan_radix_sort_tpu_torch.config import (
+    CHUNK_CARRY, CHUNK_KEYS, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
+from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
+from vulkan_radix_sort_tpu_torch.ops import radix
+from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.utils import datagen
 
 
@@ -103,3 +107,90 @@ def test_cuda_sorter_matches_numpy(cuda_device, dtype):
     order = np.argsort(k[:m], kind="stable")
     np.testing.assert_array_equal(gv.cpu().numpy()[:m], v[:m][order])
     np.testing.assert_array_equal(gv.cpu().numpy()[m:], v[m:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_value", [False, True])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_cuda_radix_kernels_match_plain(cuda_device, bits, key_value):
+    """K7 and K8 bitwise equal to their plain versions on the card at every
+    shift of a sort, with few distinct digits and a last block closed by
+    sentinel pads; each launch is counted."""
+    cfg = SortConfig(backend="radix", digit_bits=bits)
+    n = 1 << 18
+    keys = _u32(n, bits + 10 * key_value, 1 << 12)
+    keys[-777:] = 0xFFFFFFFF
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(_u32(n, 5)).to(cuda_device) if key_value else None
+    k7.reset_launches()
+    k8.reset_launches()
+    for p in range(cfg.num_passes):
+        kw = dict(shift=p * bits, config=cfg, key_value=key_value)
+        got = k7.block_sort(dk, dv, **kw)
+        want = k7.block_sort_plain(dk, dv, **kw)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        hist = want[-1]
+        args = (want[0], hist, radix._spine(hist),
+                want[1] if key_value else None)
+        got = k8.stream_place(*args, config=cfg, key_value=key_value)
+        want = k8.stream_place_plain(*args, config=cfg, key_value=key_value)
+        torch.cuda.synchronize()
+        for a, b in zip(*((got, want) if key_value else ((got,), (want,)))):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert k7.launches["block_sort"] == k8.launches["place"] == \
+        cfg.num_passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("n", [1000, (1 << 20) + 77])
+def test_cuda_radix_sort_matches_numpy(cuda_device, n, bits):
+    cfg = SortConfig(backend="radix", digit_bits=bits)
+    keys, vals = _u32(n, 3, 61), _u32(n, 4)
+    keys[::10] = 0xFFFFFFFF
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(vals).to(cuda_device)
+    np.testing.assert_array_equal(radix.sort_u32(dk, config=cfg).cpu().numpy(),
+                                  np.sort(keys))
+    gk, gv = radix.sort_pairs_u32(dk, dv, config=cfg)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+
+
+@pytest.mark.cuda
+def test_cuda_radix_stage_times(cuda_device):
+    keys = torch.from_numpy(_u32(1 << 20, 8)).to(cuda_device)
+    t = radix.stage_times(keys, SortConfig(backend="radix"), iters=2)
+    assert all(t["per_pass"][k] > 0 for k in ("upsweep", "spine",
+                                               "downsweep"))
+    assert t["upsweep"] == 4 * t["per_pass"]["upsweep"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.int32, torch.float32],
+                         ids=str)
+def test_cuda_radix_sorter_matches_numpy(cuda_device, dtype):
+    """The Sorter with backend='radix': stable either way, count= on the
+    device."""
+    n = (1 << 18) + 5
+    if dtype == torch.float32:
+        k = np.random.default_rng(9).standard_normal(n).astype(np.float32)
+    else:
+        k = _u32(n, 9, 1 << 9).view(
+            np.uint32 if dtype == torch.uint32 else np.int32)
+    v = datagen.generate_values(n, seed=10)
+    s = vrs.Sorter(n, key_dtype=dtype, config=SortConfig(backend="radix"))
+    dk = torch.from_numpy(k).to(cuda_device)
+    dv = torch.from_numpy(v).to(cuda_device)
+    np.testing.assert_array_equal(s.sort(dk).cpu().numpy().view(np.uint32),
+                                  np.sort(k).view(np.uint32))
+    m = n - 999
+    order = np.argsort(k[:m], kind="stable")
+    for stable in (True, False):
+        _, gv = s.sort_key_value(dk, dv, stable=stable,
+                                 count=torch.tensor(m, device=cuda_device))
+        np.testing.assert_array_equal(gv.cpu().numpy()[:m], v[:m][order])
+        np.testing.assert_array_equal(gv.cpu().numpy()[m:], v[m:])

@@ -170,8 +170,14 @@ def test_config_from_jax():
         "network", CHUNK_KEYS, CHUNK_CARRY)
     with pytest.raises(ValueError):  # the JAX chunk sizes do not fit smem
         config_from_jax(dataclasses.asdict(jvrs.SortConfig(chunk=1 << 16)))
-    with pytest.raises(NotImplementedError):
-        config_from_jax(dataclasses.asdict(jvrs.SortConfig(backend="radix")))
+    # the radix backend maps by name; its TPU geometry (block=2048, 4-bit
+    # digits, flush rows) gives way to the port's Hopper defaults
+    for backend in ("radix", "pallas"):
+        rad = config_from_jax(dataclasses.asdict(jvrs.SortConfig(
+            backend=backend, block=1024, digit_bits=4, flush_rows=4)))
+        assert rad == SortConfig(backend="radix")
+        assert (rad.block, rad.digit_bits, rad.radix, rad.num_passes) == (
+            4096, 8, 256, 4)
     with pytest.raises(NotImplementedError):
         config_from_jax(dataclasses.asdict(jvrs.SortConfig(adaptive=True)))
     with pytest.raises(TypeError):
@@ -179,8 +185,15 @@ def test_config_from_jax():
 
 
 def test_refusals():
-    with pytest.raises(NotImplementedError):
-        SortConfig(backend="radix")
+    # the radix backend is ported: 'pallas' is its alias, as in the JAX
+    # package; only its two digit widths and shared-memory-sized blocks
+    # are taken
+    assert SortConfig(backend="pallas") == SortConfig(backend="radix")
+    assert SortConfig(backend="radix", digit_bits=4).num_passes == 8
+    for bad in (dict(digit_bits=5), dict(digit_bits=16), dict(block=1000),
+                dict(block=256), dict(block=1 << 15)):
+        with pytest.raises(ValueError):
+            SortConfig(backend="radix", **bad)
     with pytest.raises(NotImplementedError):
         SortConfig(adaptive=True)
     with pytest.raises(ValueError):
@@ -211,6 +224,9 @@ def test_refusals():
         vrs.create_sorter(16, device="cpu", bogus=1)
     assert vrs.create_sorter(16, device="cpu", backend="network").backend \
         == "network"
+    for backend in ("radix", "pallas"):
+        assert vrs.create_sorter(16, device="cpu",
+                                 backend=backend).backend == "radix"
 
 
 def test_cuda_default_needs_a_card():
@@ -270,15 +286,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     """chip_smoke.py's kernel-vs-plain and main-path phases, rehearsed at a
-    small size on the CPU with the network backend (plain versions)."""
+    small size on the CPU (plain versions): the network through 'auto',
+    then the radix backend, against one set of oracles."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from vulkan_radix_sort_tpu_torch.models import sorter
 
-    monkeypatch.setattr(sorter, "_pick_backend", lambda cfg, dev: "network")
+    monkeypatch.setattr(sorter, "_pick_backend", lambda cfg, dev: (
+        "network" if cfg.backend == "auto" else cfg.backend))
     err = cs.check_kernels(sizes=((1 << 16, True), (1 << 16, False)),
                            device="cpu")
     assert set(err) == set(cs.KERNELS) and not any(err.values())
-    cs.main_path(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu")
+    oracles = {}
+    kw = dict(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu",
+              oracles=oracles)
+    cs.main_path(**kw)
+    shared = len(oracles)
+    cs.main_path(config=cs.RADIX, **kw)
+    assert len(oracles) == shared  # the radix run computes no new oracle

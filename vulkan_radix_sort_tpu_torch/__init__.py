@@ -3,16 +3,19 @@
 The PyTorch port of `vulkan_radix_sort_tpu`, beside it in this repository.
 Its main path is the same bitonic compare-exchange network, with each TPU
 (Pallas) kernel written again by hand in CUDA C++ for sm_90a
-(`csrc/bitonic.cu`, built with nvcc on first use), plus a `torch.sort`
-reference backend. It sorts uint32, int32 and float32 keys, key-value pairs
-(stable, or non-stable by (key, value)), and dynamic counts (`count=`, the
-reference's indirect path), on a CUDA device unless asked for the CPU,
-where each kernel's plain PyTorch version runs instead.
+(`csrc/bitonic.cu`, built with nvcc on first use). `backend="radix"` is the
+LSD radix sort the reference library is named for, over two more such
+kernels, the block sort and the placement (`csrc/radix.cu`); a `torch.sort`
+reference backend completes the set. It sorts uint32, int32 and float32
+keys, key-value pairs (stable, or on the network non-stable by (key,
+value)), and dynamic counts (`count=`, the reference's indirect path), on a
+CUDA device unless asked for the CPU, where each kernel's plain PyTorch
+version runs instead.
 """
 
 from .config import SortConfig, config_from_jax, default_config
 from .models.sorter import Sorter, create_sorter
-from .ops import bitonic, reference
+from .ops import bitonic, radix, reference
 
 __version__ = "0.1.0"
 
@@ -23,6 +26,7 @@ __all__ = [
     "config_from_jax",
     "create_sorter",
     "default_config",
+    "radix",
     "reference",
     "sort",
     "sort_key_value",

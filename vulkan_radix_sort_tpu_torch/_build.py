@@ -1,10 +1,12 @@
 """Build and load the CUDA kernels of `csrc/` on first use.
 
 The sources have a plain `extern "C"` interface, so they build with nvcc
-alone in seconds (no PyTorch headers) and load with ctypes. The library
-goes into `_build/` beside this file, named by a hash of the sources and
-flags, so a changed source builds anew and an unchanged one loads at once.
-Nothing is built at import time: the CPU paths never need a compiler.
+alone in seconds (no PyTorch headers) and load with ctypes. Each source
+compiles to an object in its own nvcc process, all started together, and
+the objects link into one library in `_build/` beside this file, named by
+a hash of the sources and flags, so a changed source builds anew and an
+unchanged one loads at once. Nothing is built at import time: the CPU paths
+never need a compiler.
 """
 
 from __future__ import annotations
@@ -20,17 +22,28 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("bitonic.cu",)
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCES = ("bitonic.cu", "radix.cu")
+COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+                 "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = ("-shared",)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# name -> argtypes after (mode, k, t, v, n_units); all end in (valid, stream)
-_SIGNATURES = {
+# The network kernels: (mode, k, t, v, n_units, *extra, valid, stream).
+_BITONIC = {
     "vrs_chunk": (_I,),                  # lc
     "vrs_local": (_I, _I),               # lc, r
     "vrs_fused": (_I, _I, _I),           # lc, r_lo, r_hi
     "vrs_cross": (_I, _I, _I, _I),       # lc, r, t_lo, span
+}
+# name -> argtypes; every function returns cudaGetLastError() as an int
+SIGNATURES = {
+    **{name: (_I, _P, _P, _P, _LL, *extra, _P, _P)
+       for name, extra in _BITONIC.items()},
+    # (kv, keys, vals, out_k, out_v, hist, nblocks, block, shift, bits,
+    #  stream)
+    "vrs_block_sort": (_I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # (kv, y, yv, hist, offsets, out, outv, nblocks, block, bits, stream)
+    "vrs_place": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
 }
 
 
@@ -47,10 +60,25 @@ def nvcc() -> str:
 
 
 def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
     for name in SOURCES:
+        h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _run_all(cmds: list[list[str]]) -> list[str]:
+    """Run the commands at once; return each one's output, or raise with
+    the first failure's after every process has ended."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, p, out in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({p.returncode}): "
+                               f"{' '.join(cmd)}\n{out}")
+    return outs
 
 
 def build() -> tuple[Path, str]:
@@ -61,15 +89,20 @@ def build() -> tuple[Path, str]:
     if lib.exists() and log.exists():
         return lib, log.read_text()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(CSRC / s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    report = res.stdout + res.stderr
-    log.write_text(report)
-    os.replace(tmp, lib)
+    tag = f"{lib.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
+    tmp = BUILD_DIR / f"{tag}.so.tmp"
+    try:
+        reports = _run_all([[nvcc(), *COMPILE_FLAGS, "-c", "-o", str(o),
+                             str(CSRC / s)] for s, o in zip(SOURCES, objs)])
+        reports += _run_all([[nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                              *map(str, objs)]])
+        report = "".join(reports)
+        log.write_text(report)
+        os.replace(tmp, lib)
+    finally:
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
     return lib, report
 
 
@@ -78,8 +111,14 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
     path, _ = build()
     lib = ctypes.CDLL(str(path))
-    for name, extra in _SIGNATURES.items():
+    for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
-        fn.argtypes = [_I, _P, _P, _P, _LL, *extra, _P, _P]
+        fn.argtypes = list(argtypes)
         fn.restype = _I
     return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch function returned a CUDA error."""
+    if err != 0:
+        raise RuntimeError(f"{what} failed: CUDA error {err}")

@@ -22,16 +22,17 @@ from __future__ import annotations
 
 import torch
 
-from ..config import SortConfig, default_config
-from ..ops import bitonic, bitops, reference
+from ..config import SortConfig, default_config, round_up
+from ..ops import bitonic, bitops, radix, reference
 
 _NOT_YET = "is not ported yet"
 
 
 def _pick_backend(cfg: SortConfig, device: torch.device) -> str:
     """'auto' is the network on a CUDA device at every size (no crossover
-    against torch.sort has been measured on the H100 yet) and the reference
-    backend on the CPU."""
+    against torch.sort or the radix backend has been measured on the H100
+    yet) and the reference backend on the CPU. 'radix' is asked for by
+    name (or by its alias 'pallas')."""
     if cfg.backend != "auto":
         return cfg.backend
     return "network" if device.type == "cuda" else "reference"
@@ -74,13 +75,21 @@ class Sorter:
         """Estimated bytes of scratch a sort holds on the device.
 
         network: the padded buffers the kernels sort in place (keys, plus
-        the index tiebreak and values for stable key-value). reference:
-        int64-widened keys, torch.sort's int64 values and indices, and the
-        gathered uint32 outputs.
+        the index tiebreak and values for stable key-value). radix: the two
+        ping-pong key buffers (and two value buffers) padded to a block
+        multiple, one pass's (nblocks, radix) histogram and run offsets,
+        and the spine's digit totals and offsets. reference: int64-widened
+        keys, torch.sort's int64 values and indices, and the gathered
+        uint32 outputs.
         """
         if self.backend == "network":
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (3 if key_value else 1)
+        if self.backend == "radix":
+            cfg = self.config
+            n = round_up(self.max_n, cfg.block)
+            tables = 2 * (n // cfg.block) * cfg.radix + 2 * cfg.radix
+            return 4 * (2 * n * (2 if key_value else 1) + tables)
         return self.max_n * (8 * 3 + 4 * (2 if key_value else 1))
 
     # -- checks ------------------------------------------------------------
@@ -119,18 +128,23 @@ class Sorter:
         if count is None:
             if self.backend == "network":
                 out = bitonic.sort_u32(u, chunk=self.config.chunk_keys)
+            elif self.backend == "radix":
+                out = radix.sort_u32(u, config=self.config)
             else:
                 out = reference.sort_keys(u)
             return self._decode(out)
         cnt = bitonic.count_tensor(count, self.device)
-        if self.backend != "network":
+        if self.backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
         live = self._live(u.numel(), cnt)
         # The first `count` slots of the masked keys-only sort are exactly
         # the sorted prefix: sentinels and genuine 0xFFFFFFFF keys are
         # indistinguishable in the output, so no index carry is needed.
         masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-        k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
+        if self.backend == "network":
+            k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
+        else:  # radix sorts every pass in full: count only masks
+            k = radix.sort_u32(masked, config=self.config)
         return self._decode(bitops.select_u32(live, k, u))
 
     def sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
@@ -140,8 +154,8 @@ class Sorter:
         stable=True matches the reference's std::stable_sort contract.
         stable=False lets the network compare (key, value) and drop the
         index carry: equal keys then come out by ascending value. The
-        reference backend is stable either way, which is also a valid
-        answer to stable=False.
+        radix and reference backends are stable either way, which is also
+        a valid answer to stable=False.
         """
         self._check(keys, values)
         u = self._encode(keys)
@@ -149,23 +163,30 @@ class Sorter:
             if self.backend == "network":
                 k, v = bitonic.sort_pairs_u32(
                     u, values, chunk=self.config.chunk_carry, stable=stable)
+            elif self.backend == "radix":
+                k, v = radix.sort_pairs_u32(u, values, config=self.config)
             else:
                 k, v = reference.sort_pairs(u, values)
             return self._decode(k), v
         cnt = bitonic.count_tensor(count, self.device)
-        if self.backend != "network":
+        if self.backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
             return self._decode(k), v
         live = self._live(u.numel(), cnt)
         masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-        # non-stable: mask values too, making the masked tail the
-        # lexicographic maximum, so genuine (max key, max value) pairs are
-        # bitwise interchangeable with it and the prefix stays exact
-        mv = values if stable else bitops.select_u32(
-            live, values, bitops.max_like_u32(values))
-        k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
-                                      chunk=self.config.chunk_carry,
-                                      stable=stable)
+        if self.backend == "radix":
+            # stable either way: the masked tail, behind every genuine
+            # 0xFFFFFFFF key in input order, stays behind it
+            k, v = radix.sort_pairs_u32(masked, values, config=self.config)
+        else:
+            # non-stable: mask values too, making the masked tail the
+            # lexicographic maximum, so genuine (max key, max value) pairs
+            # are bitwise interchangeable with it and the prefix stays exact
+            mv = values if stable else bitops.select_u32(
+                live, values, bitops.max_like_u32(values))
+            k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
+                                          chunk=self.config.chunk_carry,
+                                          stable=stable)
         return (self._decode(bitops.select_u32(live, k, u)),
                 bitops.select_u32(live, v, values))
 

@@ -1,8 +1,9 @@
 """Bitonic sort network: the host driver over the four Hopper kernels.
 
 Counterpart of the single-chip sort path of
-`vulkan_radix_sort_tpu/ops/bitonic.py` (`_plan`, `_pad_pow2`, `_stable_idx`,
-`_sort_padded`, `sort_u32`, `sort_pairs_u32`). The network is the same:
+`vulkan_radix_sort_tpu/ops/bitonic.py` (`_plan`, `_pad_pow2` as
+`bitops.pad_u32`, `_stable_idx`, `_sort_padded`, `sort_u32`,
+`sort_pairs_u32`). The network is the same:
 
   1. chunk (K1): sort each C-element chunk in shared memory, even chunks
      ascending and odd ones descending;
@@ -33,6 +34,7 @@ import torch
 from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
 from . import bitonic_kernels as bk
 from .bitonic_kernels import KEYS, PAIRS, STABLE, CROSS_W, log2
+from .bitops import check_u32, pad_u32
 
 # Elements a fused-rounds group may hold, on top of each carry's
 # shared-memory cap. Tests lower it to pin the unfused cross + local path.
@@ -53,14 +55,6 @@ def _plan(n: int, chunk: int) -> tuple[int, int]:
         raise ValueError(f"chunk must be a power of two >= {MIN_CHUNK}")
     np2 = _next_pow2(max(n, MIN_CHUNK))
     return np2, min(chunk, np2)
-
-
-def _pad_pow2(x: torch.Tensor, np2: int, fill: int) -> torch.Tensor:
-    """A new np2-element uint32 buffer holding x, then `fill`."""
-    out = torch.full((np2,), fill - (1 << 32) if fill >= 1 << 31 else fill,
-                     dtype=torch.int32, device=x.device).view(torch.uint32)
-    out[: x.numel()].copy_(x)
-    return out
 
 
 def _stable_idx(n: int, np2: int, device, count=None) -> torch.Tensor:
@@ -161,14 +155,6 @@ def count_tensor(count, device: torch.device) -> torch.Tensor | None:
     return torch.tensor(int(count), dtype=torch.int64, device=device)
 
 
-def _check_u32(*xs: torch.Tensor) -> None:
-    for x in xs:
-        if x.dtype != torch.uint32 or x.dim() != 1:
-            raise TypeError("expected 1-D uint32 tensors")
-    if any(x.device != xs[0].device or x.shape != xs[0].shape for x in xs):
-        raise ValueError("keys and values must share shape and device")
-
-
 def _checked_chunk(chunk: int, mode) -> int:
     if chunk > mode.smem_cap:
         raise ValueError(f"chunk {chunk} exceeds the {mode.smem_cap}-element "
@@ -184,10 +170,10 @@ def sort_u32(keys: torch.Tensor, count=None, *, chunk: int | None = None):
     0xFFFFFFFF already (the sorter's indirect path does); the gate only
     skips work. Returns a new tensor; `keys` is not modified.
     """
-    _check_u32(keys)
+    check_u32(keys)
     n = keys.numel()
     np2, C = _plan(n, _checked_chunk(chunk or CHUNK_KEYS, KEYS))
-    buf = _pad_pow2(keys, np2, 0xFFFFFFFF)
+    buf = pad_u32(keys, np2, 0xFFFFFFFF)
     if n:
         _sort_padded([buf], KEYS, np2, C, n, count_tensor(count, keys.device))
     return buf[:n]
@@ -203,17 +189,17 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
     ascending value. `count` as in `sort_u32`; with stable=False the caller
     masks values[count:] to 0xFFFFFFFF too.
     """
-    _check_u32(keys, values)
+    check_u32(keys, values)
     n = keys.numel()
     mode = STABLE if stable else PAIRS
     np2, C = _plan(n, _checked_chunk(chunk or CHUNK_CARRY, mode))
     cnt = count_tensor(count, keys.device)
-    k = _pad_pow2(keys, np2, 0xFFFFFFFF)
+    k = pad_u32(keys, np2, 0xFFFFFFFF)
     if stable:
         arrs = [k, _stable_idx(n, np2, keys.device, cnt),
-                _pad_pow2(values, np2, 0)]
+                pad_u32(values, np2, 0)]
     else:
-        arrs = [k, _pad_pow2(values, np2, 0xFFFFFFFF)]
+        arrs = [k, pad_u32(values, np2, 0xFFFFFFFF)]
     if n:
         _sort_padded(arrs, mode, np2, C, n, cnt)
     return arrs[0][:n], arrs[-1][:n]

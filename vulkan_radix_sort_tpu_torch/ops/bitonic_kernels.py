@@ -200,9 +200,7 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = getattr(lib, launch.cfn)(mode.code, *ptrs, nunits,
                                        *launch.cargs, vptr, stream)
-    if err != 0:
-        raise RuntimeError(f"{launch.cfn} ({mode.name}) failed: CUDA error "
-                           f"{err}")
+    _build.check(err, f"{launch.cfn} ({mode.name})")
     launches[launch.kernel] += 1
     if valid is not None:
         launches["gate"] += 1

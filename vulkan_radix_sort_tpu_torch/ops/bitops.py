@@ -75,3 +75,20 @@ def select_u32(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
     """torch.where for uint32 operands, through their int32 bit patterns."""
     return torch.where(cond, a.view(torch.int32), b.view(torch.int32)).view(
         torch.uint32)
+
+
+def pad_u32(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """A new `size`-element uint32 buffer holding x, then `fill`."""
+    out = torch.full((size,), fill - (1 << 32) if fill >= 1 << 31 else fill,
+                     dtype=torch.int32, device=x.device).view(torch.uint32)
+    out[: x.numel()].copy_(x)
+    return out
+
+
+def check_u32(*xs: torch.Tensor) -> None:
+    """Raise unless every x is a 1-D uint32 tensor of one shape and device."""
+    for x in xs:
+        if x.dtype != torch.uint32 or x.dim() != 1:
+            raise TypeError("expected 1-D uint32 tensors")
+    if any(x.device != xs[0].device or x.shape != xs[0].shape for x in xs):
+        raise ValueError("keys and values must share shape and device")
