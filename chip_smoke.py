@@ -24,7 +24,25 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      just after, and every kernel of that backend must have launched (each
      radix sort launches K7 and K8 exactly num_passes times);
   5. times on the card with CUDA events: end to end with torch.sort as the
-     yardstick, and per kernel with its bound and its plain version.
+     yardstick, and per kernel with its bound and its plain version;
+  6. slot merges: a slot buffer of 4 slots x 2^24 (slack-2 fill with the
+     sizes of a uniform 4-rank exchange, one empty slot, one full slot,
+     genuine 0xFFFFFFFF keys), keys and stable carries: every launch of
+     the gated local kernel (K6) in the merge bitwise equal to its plain
+     version, and merge_slots_u32 / merge_slots_pairs (prearranged both
+     ways) bitwise equal to numpy;
+  7. the distributed path: a world of 4 gloo ranks sharing cuda:0 with
+     2^25 keys each (2^27 in all) sorts through sort_sharded /
+     sort_pairs_sharded (keys, stable kv uniform and few-distinct, ragged
+     n with count=, constant keys that must take the fallback), each
+     bitwise equal to a numpy oracle computed once here; each rank zeroes
+     its launch counters just before each sort and reads them just after:
+     the merge runs must launch cross and the gated local kernel, the
+     fallback none of the latter. Wall time per phase of the world;
+  8. merge times, alone in this process on rank 0's received slot
+     buffers: the merge gated by the slot sizes, the same merge ungated,
+     and the full network re-sort the fallback runs, keys and stable kv;
+     and K6 per launch against the ungated local pass.
 Then the `kernels` JSON line, the card's name and power limit as
 nvidia-smi gives them, and last the {"ok": true, ...} result line.
 """
@@ -35,6 +53,8 @@ import json
 import re
 import subprocess
 import sys
+import tempfile
+import time
 
 import numpy as np
 import torch
@@ -47,6 +67,7 @@ from vulkan_radix_sort_tpu_torch.ops import bitonic, bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
+from vulkan_radix_sort_tpu_torch.parallel import distributed as td
 from vulkan_radix_sort_tpu_torch.utils import datagen
 from vulkan_radix_sort_tpu_torch.utils.timing import time_fn
 
@@ -57,6 +78,9 @@ SEED = 0
 TIMED_RUNS = 3
 RADIX = SortConfig(backend="radix")
 RAGGED_TAIL = 1000   # sentinel pads closing the last block of a K7/K8 check
+WORLD = 4            # ranks of the distributed path, all on cuda:0
+N_RANK = 1 << 25     # keys per rank (2^27 in all)
+SLOTS, SLOT = 4, 1 << 24  # the slot buffer of 4 ranks x 2^25: slack 2
 
 # H100 SXM peaks: HBM 3.35 TB/s (NVIDIA data sheet); int32 132 SMs x 64
 # INT32 lanes x 1.98 GHz boost = 16.7 Top/s (Hopper architecture white
@@ -86,13 +110,17 @@ KERNELS = {  # counter name -> (label, source, the TPU kernel it replaces)
               "vulkan_radix_sort_tpu/ops/bitonic.py:993"),
     "gate": ("K5 validity gate", BITONIC_CU,
              "vulkan_radix_sort_tpu/ops/bitonic.py:746"),
+    "local_gated": ("K6 gated local (slot merge)", BITONIC_CU,
+                    "vulkan_radix_sort_tpu/ops/bitonic.py:793"),
     "block_sort": ("K7 radix block sort", RADIX_CU,
                    "vulkan_radix_sort_tpu/ops/block_sort.py:154"),
     "place": ("K8 radix placement", RADIX_CU,
               "vulkan_radix_sort_tpu/ops/stream_place.py:228"),
 }
 RADIX_KERNELS = ("block_sort", "place")
-NETWORK_KERNELS = tuple(k for k in KERNELS if k not in RADIX_KERNELS)
+MERGE_KERNELS = ("local_gated",)
+NETWORK_KERNELS = tuple(k for k in KERNELS
+                        if k not in RADIX_KERNELS + MERGE_KERNELS)
 
 
 def log(*a):
@@ -286,8 +314,15 @@ def _expect(got: torch.Tensor, want: np.ndarray, what: str) -> None:
     log(f"[main] {what}: ok")
 
 
+def _stable_order(k: np.ndarray) -> np.ndarray:
+    """np.argsort(k, kind="stable"), as one uint64 sort of (key, index)."""
+    c = np.sort((k.astype(np.uint64) << np.uint64(32))
+                | np.arange(k.size, dtype=np.uint64))
+    return (c & np.uint64(0xFFFFFFFF)).astype(np.int64)
+
+
 def _stable_oracle(k: np.ndarray, v: np.ndarray):
-    o = np.argsort(k, kind="stable")
+    o = _stable_order(k)
     return k[o], v[o]
 
 
@@ -443,7 +478,7 @@ class KernelTimer:
         run, launch7, launch8 = (f for _, _, f in self._saved)
 
         def timed_run(launch, arrs, mode, nunits, valid=None):
-            names = [launch.kernel] + (["gate"] if valid is not None else [])
+            names = bk.counters(launch, valid)
             return self._bracket(
                 lambda: run(launch, arrs, mode, nunits, valid),
                 dict(names=names, launch=launch, mode=mode,
@@ -583,9 +618,10 @@ def e2e_times(sorts, keys, vals, card: str) -> dict:
     return e2e
 
 
-def kernel_times(sorts) -> dict:
+def kernel_times(sorts) -> tuple[dict, list]:
     """Per kernel over TIMED_RUNS runs of the path's sorts: launch time,
-    bound and, for one run, the plain version's time at the same shapes."""
+    bound and, for one run, the plain version's time at the same shapes.
+    Returns the sums per kernel and every launch's record."""
     for fn in sorts.values():  # warm
         fn()
     torch.cuda.synchronize()
@@ -623,7 +659,365 @@ def kernel_times(sorts) -> dict:
             f"bound_ms/launch={a['bound'] / a['n']:.4f} "
             f"({max(a['by'], key=a['by'].get)}) "
             f"plain_ms/launch={a['plain'] / max(a['nplain'], 1):.3f}")
+    return per, timer.records
+
+
+# -- phase 6: slot merges (K6) -----------------------------------------------
+
+def slot_runs(slot: int = SLOT, seed: int = SEED + 20):
+    """Four sorted runs and their values for a slot buffer: the sizes of a
+    uniform 4-rank exchange (about half a slot, cut mid-block) in slots 0
+    and 3 (both parities), slot 1 empty and slot 2 full. One key in 64 is a
+    genuine 0xFFFFFFFF, which meets the fills; values are the slot-major
+    running index."""
+    rng = np.random.default_rng(seed)
+    sizes = [slot // 2 + slot // 97, 0, slot, slot // 2 - slot // 61]
+    runs, vals, base = [], [], 0
+    for size in sizes:
+        k = rng.integers(0, 2**32, size, dtype=np.uint64).astype(np.uint32)
+        k[rng.random(size) < 1 / 64] = KEY_SENTINEL
+        runs.append(np.sort(k))
+        vals.append(np.arange(base, base + size, dtype=np.uint32))
+        base += size
+    return runs, vals, sizes
+
+
+def slot_buffer(runs, slot: int, fill: int, prearranged: bool) -> np.ndarray:
+    """Each run in its slot: ascending in the slot's prefix or, with
+    prearranged, descending in the suffix of an odd slot."""
+    buf = np.full((len(runs), slot), fill, np.uint32)
+    for s, run in enumerate(runs):
+        if prearranged and s & 1:
+            buf[s, slot - run.size:] = run[::-1]
+        else:
+            buf[s, :run.size] = run
+    return buf.reshape(-1)
+
+
+def check_slot_merges(slot: int = SLOT, device="cuda") -> int:
+    """merge_slots_u32 and merge_slots_pairs (stable) on a full-width slot
+    buffer, prearranged both ways, bitwise against numpy; every gated local
+    (K6) launch in them is held against its plain version on a copy of its
+    input. Returns K6's max |err|."""
+    runs, vals, sizes = slot_runs(slot)
+    allk, allv = np.concatenate(runs), np.concatenate(vals)
+    order = _stable_order(allk)
+    want_k, want_v, total = allk[order], allv[order], allk.size
+    sizes_t = torch.tensor(sizes, device=device)
+    err, checked = 0, 0
+    real_run = bk.run
+
+    def checked_run(launch, arrs, mode, nunits, valid=None):
+        nonlocal err, checked
+        if launch.kernel != "local_gated":
+            return real_run(launch, arrs, mode, nunits, valid)
+        want = [a.clone() for a in arrs]
+        real_run(launch, arrs, mode, nunits, valid)
+        bk.run_plain(launch, want, mode, nunits, valid)
+        sync(device)
+        e = _max_abs_err(arrs, want)
+        log(f"[kernel] n={arrs[0].numel()} local_gated {mode.name} "
+            f"r={launch.cargs[1]} live={int(valid[:nunits].sum())}/{nunits} "
+            f"max_abs_err={e}")
+        if e != 0:
+            raise AssertionError(f"local_gated {mode.name} {launch.cargs}: "
+                                 "the kernel differs from its plain version")
+        err, checked = max(err, e), checked + 1
+
+    bk.run = checked_run
+    try:
+        for pre in (True, False):
+            kb = to_dev(slot_buffer(runs, slot, KEY_SENTINEL, pre), device)
+            vb = to_dev(slot_buffer(vals, slot, 0, pre), device)
+            what = f"slot merge {SLOTS}x{slot} prearranged={pre}"
+            _expect(bitonic.merge_slots_u32(kb, sizes_t, slot=slot,
+                                            prearranged=pre)[:total],
+                    want_k, f"{what} keys")
+            gk, gv = bitonic.merge_slots_pairs(kb, vb, sizes_t, slot=slot,
+                                               prearranged=pre)
+            _expect(gk[:total], want_k, f"{what} stable kv, keys")
+            _expect(gv[:total], want_v, f"{what} stable kv, values")
+            del kb, vb, gk, gv
+    finally:
+        bk.run = real_run
+    if checked == 0:
+        raise AssertionError("the slot merges launched no gated local")
+    return err
+
+
+# -- phase 7: the distributed path -------------------------------------------
+
+# the cases whose received slot buffers rank 0 hands back for phase 8
+CAPTURE = {"keys uniform": "keys", "stable kv uniform": "stable_kv"}
+WORLD_LABEL = (f"{WORLD} ranks sharing one H100, exchange through gloo on "
+               "the host: not a cluster number")
+
+
+def dist_cases(n: int) -> dict:
+    """name -> (key distribution, key-value, global n, count=, merge
+    expected). Ragged n leaves the last rank's shard short; its padding and
+    the count= mask all go to the last destination's slot."""
+    ragged = n - 1000
+    return {
+        "keys uniform": ("uniform", False, n, None, True),
+        "stable kv uniform": ("uniform", True, n, None, True),
+        "stable kv few": ("few", True, n, None, True),
+        "keys ragged count=": ("uniform", False, ragged, ragged - n // 128,
+                               True),
+        "keys constant, fallback": ("constant", False, n, None, False),
+    }
+
+
+def dist_rank(rank: int, world: int, tmp: str, n: int, device: str,
+              use_kernels) -> None:
+    """One rank: its shard of each case through the public entry points,
+    the launch counters zeroed just before each sort and read just after;
+    outputs, counts and phase times go to `tmp`. Rank 0 also keeps the slot
+    buffers the merge of each CAPTURE case received."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    vals = np.load(f"{tmp}/vals.npy", mmap_mode="r")
+    captured = {}
+    real_finish = td.merge_finish
+
+    def capture(bufs, sizes, S, m, config=None):
+        captured.update(bufs=bufs, sizes=sizes, S=S, m=m)
+        return real_finish(bufs, sizes, S, m, config)
+
+    td.merge_finish = capture
+    report = {}
+    for i, (name, (dist, kv, nn, count, _)) in enumerate(
+            dist_cases(n).items()):
+        keys = np.load(f"{tmp}/keys_{dist}.npy", mmap_mode="r")
+        m = -(-nn // world)
+        lo, hi = min(rank * m, nn), min((rank + 1) * m, nn)
+        dk = to_dev(np.array(keys[lo:hi]), dev)
+        dv = to_dev(np.array(vals[lo:hi]), dev) if kv else None
+        captured.clear()
+        phases = {}
+        sync(dev)
+        reset_launches()
+        t = time.perf_counter()
+        if kv:
+            gk, gv = td.sort_pairs_sharded(dk, dv, count=count,
+                                           use_kernels=use_kernels,
+                                           phase_times=phases)
+        else:
+            gk = td.sort_sharded(dk, count=count, use_kernels=use_kernels,
+                                 phase_times=phases)
+        sync(dev)
+        report[name] = dict(launches=launch_counts(), phases=phases,
+                            wall_s=time.perf_counter() - t)
+        np.save(f"{tmp}/out{i}_{rank}_k.npy", gk.cpu().numpy())
+        if kv:
+            np.save(f"{tmp}/out{i}_{rank}_v.npy", gv.cpu().numpy())
+        if rank == 0 and name in CAPTURE and captured:
+            tag = CAPTURE[name]
+            for j, b in enumerate(captured["bufs"]):
+                np.save(f"{tmp}/slot_{tag}_{j}.npy", b.cpu().numpy())
+            np.save(f"{tmp}/slot_{tag}_sizes.npy",
+                    captured["sizes"].cpu().numpy())
+            report[name]["slot"] = [captured["S"], captured["m"]]
+        del dk, dv, gk
+    with open(f"{tmp}/report{rank}.json", "w") as f:
+        json.dump(report, f)
+
+
+def dist_phase(n_rank: int = N_RANK, world: int = WORLD, device="cuda:0",
+               use_kernels=None):
+    """A world of `world` gloo ranks, all on `device`, through each case of
+    `dist_cases`, each answer bitwise against a numpy oracle made here;
+    every merge case must launch cross and the gated local kernel (and
+    chunk once per rank), the fallback chunk twice per rank and no gated
+    local. Returns the launches of all cases summed over the ranks, and
+    rank 0's received slot buffers: tag -> (buffers, sizes, S, m)."""
+    n = n_rank * world
+    cases = dist_cases(n)
+    data = {d: datagen.generate_keys(n, seed=SEED + 10, distribution=d)
+            for d in ("uniform", "few", "constant")}
+    vals = datagen.generate_values(n, seed=SEED + 11)
+    total = dict.fromkeys(launch_counts(), 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for d, a in data.items():
+            np.save(f"{tmp}/keys_{d}.npy", a)
+        np.save(f"{tmp}/vals.npy", vals)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        td.spawn_world(dist_rank, world, tmp, n, str(device), use_kernels,
+                       init_file=f"{tmp}/store")
+        log(f"[dist] {world} gloo ranks on {device}, {n_rank} keys each: "
+            f"world done in {time.perf_counter() - t:.1f} s")
+        reports = []
+        for r in range(world):
+            with open(f"{tmp}/report{r}.json") as f:
+                reports.append(json.load(f))
+        for i, (name, (dist, kv, nn, count, merge)) in enumerate(
+                cases.items()):
+            keys = data[dist][:nn]
+            live = keys if count is None else keys[:count]
+            order = _stable_order(live)
+            wk = np.concatenate([live[order], keys[live.size:]])
+            got = [np.concatenate([np.load(f"{tmp}/out{i}_{r}_{x}.npy")
+                                   for r in range(world)])
+                   for x in (("k", "v") if kv else ("k",))]
+            _expect(torch.from_numpy(got[0]), wk, f"dist {name}, keys")
+            if kv:
+                wv = np.concatenate([vals[:live.size][order],
+                                     vals[live.size:nn]])
+                _expect(torch.from_numpy(got[1]), wv, f"dist {name}, values")
+            counts = {k: sum(rep[name]["launches"][k] for rep in reports)
+                      for k in total}
+            for k in total:
+                total[k] += counts[k]
+            log(f"[launches] dist {name}", json.dumps(counts))
+            ok = (counts["local_gated"] > 0 and counts["cross"] > 0
+                  and counts["chunk"] == world) if merge else (
+                counts["local_gated"] == 0 and counts["chunk"] == 2 * world)
+            if not ok:
+                raise AssertionError(
+                    f"dist {name}: launches {counts} are not those of the "
+                    f"{'merge' if merge else 'fallback'} path")
+            worst = {}
+            for rep in reports:
+                for k, v in rep[name]["phases"].items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+            log(f"[dist-time] {name} ({WORLD_LABEL}):", json.dumps({
+                "rank0_wall_s": reports[0][name]["wall_s"],
+                "rank0_phase_s": reports[0][name]["phases"],
+                "max_over_ranks_phase_s": worst}))
+        slot_bufs = {}
+        for name, tag in CAPTURE.items():
+            S, m = reports[0][name]["slot"]
+            nb = 2 if cases[name][1] else 1
+            slot_bufs[tag] = (
+                [np.load(f"{tmp}/slot_{tag}_{j}.npy") for j in range(nb)],
+                np.load(f"{tmp}/slot_{tag}_sizes.npy"), S, m)
+    log("[launches] dist", json.dumps(total))
+    return total, slot_bufs
+
+
+# -- phase 8: merge times ----------------------------------------------------
+
+def _genuine(bufs, sizes, S: int):
+    """The packed arrivals again: each slot's genuine run, ascending, in
+    slot order (what the fallback's full re-sort is given)."""
+    out = []
+    for b in bufs:
+        parts = []
+        for s, size in enumerate(sizes):
+            seg = b[s * S:(s + 1) * S]
+            parts.append(seg[S - size:][::-1] if s & 1 else seg[:size])
+        out.append(np.ascontiguousarray(np.concatenate(parts)))
+    return out
+
+
+def _merge_pairs_ungated(kb, vb, sizes, S: int):
+    """merge_slots_pairs (stable, prearranged) with no fill gating: the
+    same carry through every block of every round."""
+    arrs, mode, C, r_start, _ = bitonic._slot_pairs(
+        kb, vb, sizes, S, CHUNK_CARRY, True, True)
+    bitonic._merge_rounds(arrs, mode, kb.numel(), C, r_start)
+    return arrs[0], arrs[-1]
+
+
+def merge_times(slot_bufs, card: str) -> dict:
+    """On rank 0's received slot buffers, alone in this process: (a) the
+    merge gated by the slot sizes, (b) the same merge ungated, (c) the full
+    network re-sort of the same genuine elements (the fallback's), for keys
+    and stable kv; (b) and (c) are first checked against (a). Then per
+    launch: the gated local (K6) against the ungated local pass of the
+    same round and the gated blocks' live share. Returns kernel_times'
+    sums for the merges."""
+    sorts, times = {}, {"card": card}
+    for tag, (bufs, sizes, S, m) in slot_bufs.items():
+        dev = [to_dev(b, "cuda") for b in bufs]
+        sz = to_dev(sizes.astype(np.int64), "cuda")
+        packed = [to_dev(p, "cuda") for p in _genuine(bufs, sizes, S)]
+        if tag == "keys":
+            kb, = dev
+            fns = {"gated": lambda kb=kb, sz=sz, S=S: (
+                       bitonic.merge_slots_u32(kb, sz, slot=S,
+                                               prearranged=True),),
+                   "ungated": lambda kb=kb, S=S: (
+                       bitonic.merge_slots_u32(kb, None, slot=S,
+                                               prearranged=True),),
+                   "full": lambda pk=packed[0]: (
+                       td._local_sort(pk, None, None, True),)}
+        else:
+            kb, vb = dev
+            fns = {"gated": lambda kb=kb, vb=vb, sz=sz, S=S:
+                   bitonic.merge_slots_pairs(kb, vb, sz, slot=S,
+                                             prearranged=True),
+                   "ungated": lambda kb=kb, vb=vb, sz=sz, S=S:
+                   _merge_pairs_ungated(kb, vb, sz, S),
+                   "full": lambda pk=packed[0], pv=packed[1]:
+                   td._local_sort(pk, pv, None, True)}
+        want = [x[:m].cpu() for x in fns["gated"]()]
+        for variant in ("ungated", "full"):
+            got = [x[:m].cpu() for x in fns[variant]()]
+            if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                       for a, b in zip(got, want)):
+                raise AssertionError(f"merge {tag} {variant} differs from "
+                                     "the gated merge")
+        times[tag] = {f"{v}_ms": time_fn(f) * 1e3 for v, f in fns.items()}
+        times[tag].update(n_slots=len(sizes), slot=S, genuine=m)
+        sorts[f"merge_{tag}"] = fns["gated"]
+        sorts[f"merge_{tag}_ungated"] = fns["ungated"]
+    log("[merge-time]", json.dumps(times))
+    per, records = kernel_times(sorts)
+    rounds = {}
+    for rec in records:
+        kind = rec["names"][0]
+        if kind in ("local", "local_gated"):
+            e = rounds.setdefault(
+                (rec["tag"].removesuffix("_ungated"), rec["launch"].cargs[1]),
+                {"local": [], "local_gated": [], "live": 0.0})
+            e[kind].append(rec["events"][0].elapsed_time(rec["events"][1]))
+            if kind == "local_gated":
+                e["live"] = float(rec["valid"][:rec["nunits"]].sum()) / \
+                    rec["nunits"]
+    for (tag, r), e in rounds.items():
+        g = sum(e["local_gated"]) / len(e["local_gated"])
+        u = sum(e["local"]) / len(e["local"])
+        log(f"[merge-time] {tag} round {r}: local_gated {g:.4f} ms at live "
+            f"share {e['live']:.3f}; ungated local {u:.4f} ms; live share x "
+            f"ungated {e['live'] * u:.4f} ms; ratio "
+            f"{g / (e['live'] * u):.3f}")
+    gated_block_cost(slot_bufs, records)
     return per
+
+
+def gated_block_cost(slot_bufs, records) -> None:
+    """What gated thread blocks cost, with launches back to back (no host
+    gap between them): the first K6 launch of each merge with its mask, K4
+    over as many blocks as that mask has live ones, and K4 over every
+    block, on the merge's own carry arrays."""
+    for tag, (bufs, sizes, S, _) in slot_bufs.items():
+        rec = next(r for r in records if r["tag"] == f"merge_{tag}"
+                   and r["names"][0] == "local_gated")
+        kb = to_dev(bufs[0], "cuda")
+        if tag == "keys":
+            arrs = [kb]
+        else:
+            arrs = bitonic._slot_pairs(
+                kb, to_dev(bufs[1], "cuda"),
+                to_dev(sizes.astype(np.int64), "cuda"), S, CHUNK_CARRY,
+                True, True)[0]
+        launch, mode, units = rec["launch"], rec["mode"], rec["nunits"]
+        valid = rec["valid"]
+        live = int(valid[:units].sum())
+        local = bk.spec("local", launch.unit, launch.cargs[1])
+        t = {"gated_ms": time_fn(bk.run, launch, arrs, mode, units, valid),
+             "live_blocks_ungated_ms": time_fn(bk.run, local, arrs, mode,
+                                               live),
+             "all_blocks_ungated_ms": time_fn(bk.run, local, arrs, mode,
+                                              units)}
+        t = {k: v * 1e3 for k, v in t.items()}
+        t.update(live_blocks=live, blocks=units, mode=mode.name)
+        log(f"[merge-time] K6 back to back, {tag}:", json.dumps(t))
 
 
 def _path_launches(config: SortConfig | None, kernels, oracles) -> dict:
@@ -661,7 +1055,13 @@ def main() -> int:
 
     sorts, keys, vals = path_sorts()
     e2e_times(sorts, keys, vals, card)
-    per = kernel_times(sorts)
+    per, _ = kernel_times(sorts)
+    del sorts, keys, vals
+
+    err["local_gated"] = check_slot_merges()
+    dist_launches, slot_bufs = dist_phase()
+    launches["local_gated"] = dist_launches["local_gated"]
+    per["local_gated"] = merge_times(slot_bufs, card)["local_gated"]
     rows = []
     for key, (label, source, replaces) in KERNELS.items():
         p = per[key]

@@ -13,6 +13,7 @@ Tolerance: bitwise equality (all data is integer or compared as bits).
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import (
@@ -22,6 +23,7 @@ from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
+from vulkan_radix_sort_tpu_torch.parallel import distributed as td
 from vulkan_radix_sort_tpu_torch.utils import datagen
 
 
@@ -194,3 +196,80 @@ def test_cuda_radix_sorter_matches_numpy(cuda_device, dtype):
                                  count=torch.tensor(m, device=cuda_device))
         np.testing.assert_array_equal(gv.cpu().numpy()[:m], v[:m][order])
         np.testing.assert_array_equal(gv.cpu().numpy()[m:], v[m:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
+def test_cuda_local_gated_matches_plain(cuda_device, mode):
+    """K6 bitwise equal to its plain version under a mask with zeros; it
+    counts as local_gated, never as a K5 gate launch."""
+    rng = np.random.default_rng(12)
+    n, C, r = 1 << 20, CHUNK_CARRY, 3
+    units = n // C
+    valid = torch.from_numpy(rng.integers(0, 2, units).astype(np.int32)).to(
+        cuda_device)
+    a = [torch.from_numpy(_u32(n, 20 + i, 1000)).to(cuda_device)
+         for i in range(mode.n_arrays)]
+    b = [x.clone() for x in a]
+    bk.reset_launches()
+    bk.local_gated(a, mode, C, r, units, valid)
+    bk.run_plain(bk.spec("local_gated", C, r), b, mode, units, valid)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert bk.launches["local_gated"] == 1 and bk.launches["gate"] == 0
+
+
+@pytest.mark.cuda
+def test_cuda_merge_slots_match_numpy(cuda_device):
+    """The slot merges on the card: 8 slots of 2^16 with empty, full and
+    mid-block slots and genuine 0xFFFFFFFF keys, keys and stable kv."""
+    rng = np.random.default_rng(13)
+    n_slots, slot = 8, 1 << 16
+    sizes = rng.integers(0, slot + 1, n_slots)
+    sizes[[1, 2, 4, 7]] = [0, slot, 0, slot]
+    kbuf = np.full((n_slots, slot), 0xFFFFFFFF, np.uint32)
+    vbuf = np.zeros((n_slots, slot), np.uint32)
+    runs = []
+    for s, size in enumerate(sizes):
+        k = _u32(size, 30 + s, 100)
+        k[::7] = 0xFFFFFFFF
+        kbuf[s, :size] = np.sort(k)
+        vbuf[s, :size] = np.arange(size) + s * slot
+        runs.append(s * slot + np.arange(size))
+    flat = np.concatenate(runs)
+    allk, allv = kbuf.reshape(-1)[flat], vbuf.reshape(-1)[flat]
+    order = np.argsort(allk, kind="stable")
+    dk = torch.from_numpy(kbuf.reshape(-1)).to(cuda_device)
+    dv = torch.from_numpy(vbuf.reshape(-1)).to(cuda_device)
+    ds = torch.from_numpy(sizes).to(cuda_device)
+    got = tbit.merge_slots_u32(dk, ds, slot=slot).cpu().numpy()
+    np.testing.assert_array_equal(got[:flat.size], allk[order])
+    gk, gv = tbit.merge_slots_pairs(dk, dv, ds, slot=slot)
+    np.testing.assert_array_equal(gk.cpu().numpy()[:flat.size], allk[order])
+    np.testing.assert_array_equal(gv.cpu().numpy()[:flat.size], allv[order])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["gloo", "nccl"])
+def test_cuda_sort_sharded_single_rank(cuda_device, backend, tmp_path):
+    """sort_sharded / sort_pairs_sharded on a world of one rank on the
+    card (the NCCL branch's only run on one card), with count=."""
+    n = (1 << 20) + 3
+    keys, vals = _u32(n, 14, 1 << 12), _u32(n, 15)
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(vals).to(cuda_device)
+    c = n - 777
+    dist.init_process_group(backend, init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        got = td.sort_sharded(dk, count=torch.tensor(c, device=cuda_device))
+        gk, gv = td.sort_pairs_sharded(dk, dv, merge_resort=True)
+    finally:
+        dist.destroy_process_group()
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got[:c], np.sort(keys[:c]))
+    np.testing.assert_array_equal(got[c:], keys[c:])
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])

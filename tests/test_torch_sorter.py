@@ -285,9 +285,10 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
 
 
 def test_chip_smoke_phases_on_the_cpu(monkeypatch):
-    """chip_smoke.py's kernel-vs-plain and main-path phases, rehearsed at a
-    small size on the CPU (plain versions): the network through 'auto',
-    then the radix backend, against one set of oracles."""
+    """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase)
+    and main-path phases, rehearsed at a small size on the CPU (plain
+    versions): the network through 'auto', then the radix backend, against
+    one set of oracles."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -298,6 +299,7 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
         "network" if cfg.backend == "auto" else cfg.backend))
     err = cs.check_kernels(sizes=((1 << 16, True), (1 << 16, False)),
                            device="cpu")
+    err["local_gated"] = cs.check_slot_merges(slot=1 << 12, device="cpu")
     assert set(err) == set(cs.KERNELS) and not any(err.values())
     oracles = {}
     kw = dict(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu",

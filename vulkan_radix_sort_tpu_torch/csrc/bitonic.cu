@@ -10,6 +10,15 @@
 //   `valid`        K5  _gate_body (746): a block whose flag is 0 returns at
 //                      once; the buffers are updated in place, so its region
 //                      is already correct.
+//   local_kernel   K6  _block_call_dma_gated (793): the slot merge's local
+//                      pass, launched over every C-block of the slot buffer
+//                      with its per-block mask and no prefix clip. K6 exists
+//                      on the TPU only because a BlockSpec pipeline DMAs
+//                      every grid step; its manual double-buffered DMA
+//                      (843-874) is how the TPU makes a gated block move zero
+//                      bytes. Here a thread block that returns before its
+//                      first load already moves zero bytes, so no DMA code
+//                      carries over.
 //
 // Every kernel works in place on up to three uint32 arrays, templated on
 // the carry <WORDS, RIDE>: KEYS <1,0> (k), PAIRS <2,0> ((k, v) compared

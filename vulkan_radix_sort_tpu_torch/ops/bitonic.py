@@ -203,3 +203,184 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
     if n:
         _sort_padded(arrs, mode, np2, C, n, cnt)
     return arrs[0][:n], arrs[-1][:n]
+
+
+# -- slot merge: finish a sort whose input is already sorted runs ------------
+
+def _reverse_odd_slots(x: torch.Tensor, n_slots: int, slot: int):
+    """A copy of x with every odd slot reversed: all-ascending sorted slots
+    become the alternating directions the merge rounds expect."""
+    out = x.view(torch.int32).clone().view(n_slots, slot)
+    out[1::2] = out[1::2].flip(1)
+    return out.view(-1).view(torch.uint32)
+
+
+def _slot_geometry(n: int, slot: int, chunk: int, mode) -> tuple[int, int,
+                                                                  int]:
+    """(n_slots, C, first merge round) of a slot merge."""
+    n_slots = n // slot
+    if slot < MIN_CHUNK or slot & (slot - 1):
+        raise ValueError(f"slot must be a power of two >= {MIN_CHUNK}")
+    if n != n_slots * slot or n_slots & (n_slots - 1):
+        raise ValueError(f"{n} elements are not a power-of-two number of "
+                         f"{slot}-element slots")
+    _plan(slot, _checked_chunk(chunk, mode))  # checks the chunk
+    C = min(slot, chunk)
+    return n_slots, C, log2(slot // C) + 1
+
+
+def _slot_sizes(sizes, n_slots: int, device) -> torch.Tensor | None:
+    """Per-slot genuine counts as an int64 tensor on `device`: from a
+    tensor already there (never moved) or from a sequence of ints."""
+    if sizes is None:
+        return None
+    if isinstance(sizes, torch.Tensor):
+        if sizes.device != device:
+            raise ValueError(f"sizes live on {sizes.device}, the buffers on "
+                             f"{device}")
+        t = sizes.reshape(-1).to(torch.int64)
+    else:
+        t = torch.tensor(list(sizes), dtype=torch.int64, device=device)
+    if t.numel() != n_slots:
+        raise ValueError(f"{t.numel()} sizes for {n_slots} slots")
+    return t
+
+
+def _merge_rounds(arrs, mode, np2: int, C: int, r_start: int,
+                  slot: int | None = None, sizes=None) -> None:
+    """Merge rounds r_start..log2(np2/C) in place: the tail of the network
+    for buffers whose 2^(r_start-1)*C-element blocks are already sorted in
+    alternating directions (even blocks ascending).
+
+    Without `sizes` every round runs cross (K3) and local (K4) over the
+    whole buffer. With per-slot genuine `sizes` (int64, on the buffers'
+    device), each C-block's genuine count is tracked through the rounds and
+    pure-fill regions are gated, as in the JAX package:
+    - at first an ascending slot's genuine elements are its prefix and a
+      descending (odd) slot's its suffix;
+    - round r's cross stages run on each 2^r-block group holding any
+      genuine element (K5 mask, `gcnt > 0`). They leave each group's
+      elements in block order up to the group's direction, so its fills
+      (the lexicographic maximum) fill its trailing blocks (ascending) or
+      its leading ones (descending): each block's count is a clip of the
+      conserved group count, in the group's direction;
+    - the local pass then runs only on blocks with a genuine element
+      (K6, `local_gated`). Fills never leave their blocks' clip; a
+      per-block slip would lose data (ROADMAP queue 3, skip granularity).
+    """
+    nblocks = np2 // C
+    nrounds = log2(nblocks)
+    counts = None
+    if sizes is not None:
+        b = torch.arange(nblocks, device=arrs[0].device)
+        bps = slot // C  # C-blocks per slot
+        off = (b % bps) * C
+        g = sizes[b // bps]
+        odd_slot = ((b // bps) & 1) == 1
+        counts = torch.where(odd_slot, (off + C - (slot - g)).clamp(0, C),
+                             (g - off).clamp(0, C))
+    for r in range(r_start, nrounds + 1):
+        ngroups = nblocks >> r
+        cross_valid = None
+        if counts is not None:
+            gb = 1 << r  # blocks per group this round
+            gcnt = counts.view(ngroups, gb).sum(1)  # conserved per group
+            cross_valid = (gcnt > 0).to(torch.int32)
+        for t_lo, span in _cross_spans(r, mode):
+            bk.cross(arrs, mode, C, r, t_lo, span, ngroups, cross_valid)
+        if counts is None:
+            bk.local(arrs, mode, C, r, nblocks)
+            continue
+        pos = b % gb
+        grep = gcnt.repeat_interleave(gb)
+        g_odd = ((b >> r) & 1) == 1  # the round's direction: group parity
+        counts = torch.where(g_odd, (grep - (gb - 1 - pos) * C).clamp(0, C),
+                             (grep - pos * C).clamp(0, C))
+        bk.local_gated(arrs, mode, C, r, nblocks,
+                       (counts > 0).to(torch.int32))
+
+
+def merge_slots_u32(keys: torch.Tensor, sizes=None, *, slot: int,
+                    chunk: int = CHUNK_CARRY, prearranged: bool = False):
+    """Sort a (n_slots * slot,) buffer whose aligned `slot`-element segments
+    are each sorted ascending with 0xFFFFFFFF fill tails, with the
+    network's log2(n_slots) merge rounds only. The distributed re-sort:
+    after the exchange a rank holds one sorted run per source. Fills sort
+    to the global tail; callers slice the genuine prefix.
+
+    `sizes` (per-slot genuine prefix lengths: an integer tensor on the
+    keys' device, or ints) turns on pure-fill gating (`_merge_rounds`).
+    prearranged=True promises that odd slots already hold their run
+    descending in the slot suffix, so no reversal pass runs. Returns a new
+    tensor; `keys` is not modified. `chunk` defaults to the carry chunk,
+    as the distributed sort runs both kinds of slot merge.
+    """
+    check_u32(keys)
+    n = keys.numel()
+    n_slots, C, r_start = _slot_geometry(n, slot, chunk, KEYS)
+    k = keys.clone() if prearranged else _reverse_odd_slots(keys, n_slots,
+                                                            slot)
+    _merge_rounds([k], KEYS, n, C, r_start, slot,
+                  _slot_sizes(sizes, n_slots, keys.device))
+    return k
+
+
+def _slot_pairs(keys, values, sizes, slot, chunk, stable, prearranged):
+    """The carry of a key-value slot merge in merge orientation:
+    (arrays, mode, C, first round, sizes)."""
+    check_u32(keys, values)
+    n = keys.numel()
+    mode = STABLE if stable else PAIRS
+    n_slots, C, r_start = _slot_geometry(n, slot, chunk, mode)
+    dev = keys.device
+    sz = _slot_sizes(sizes, n_slots, dev)
+    if sz is None:
+        raise ValueError("a key-value slot merge needs the slot sizes")
+
+    def arrange(a):
+        return a.clone() if prearranged else _reverse_odd_slots(a, n_slots,
+                                                                slot)
+    if not stable:
+        return [arrange(keys), arrange(values)], mode, C, r_start, sz
+    # the tiebreak: slot-major flat position = (source rank, intra-source
+    # order) for the distributed re-sort; fills carry STABLE_PAD_IDX. The
+    # bound is strict: slot buffers always hold fills, so no genuine
+    # position may equal the pad tiebreak.
+    if n > STABLE_PAD_IDX:
+        raise ValueError(f"a stable slot merge holds at most "
+                         f"{STABLE_PAD_IDX} elements")
+    pos = torch.arange(slot, dtype=torch.int32, device=dev).expand(n_slots,
+                                                                   slot)
+    odd = (torch.arange(n_slots, device=dev) & 1).bool()[:, None]
+    if prearranged:  # buffer orientation: odd slots hold position slot-1-j
+        pos = torch.where(odd, slot - 1 - pos, pos)
+    flat = torch.arange(n_slots, dtype=torch.int32, device=dev)[:, None] * \
+        slot + pos
+    aux = torch.where(pos < sz[:, None], flat, STABLE_PAD_IDX).to(
+        torch.int32).view(-1).view(torch.uint32)
+    if not prearranged:
+        aux = _reverse_odd_slots(aux, n_slots, slot)
+    return [arrange(keys), aux, arrange(values)], mode, C, r_start, sz
+
+
+def merge_slots_pairs(keys: torch.Tensor, values: torch.Tensor, sizes, *,
+                      slot: int, chunk: int = CHUNK_CARRY, stable: bool = True,
+                      prearranged: bool = False):
+    """Key-value slot merge; `sizes` gives each slot's genuine prefix
+    length (required: it builds the stable tiebreak and gates fills).
+
+    stable=True breaks ties between equal keys by slot-major flat position,
+    i.e. (slot, position in slot): for the distributed re-sort exactly
+    (source rank, intra-source order), the global stability contract.
+    Fill tiebreaks are STABLE_PAD_IDX, so fills sort strictly after every
+    genuine pair, genuine 0xFFFFFFFF keys included; values fill with
+    anything. stable=False compares (key, value) and expects value fills of
+    0xFFFFFFFF. prearranged=True as in `merge_slots_u32`; the tiebreak is
+    then built in buffer orientation (an odd slot's position j holds
+    intra-source position slot-1-j), so it stays (source rank, intra-source
+    order). Returns new (keys, values) tensors.
+    """
+    arrs, mode, C, r_start, sz = _slot_pairs(keys, values, sizes, slot,
+                                             chunk, stable, prearranged)
+    _merge_rounds(arrs, mode, keys.numel(), C, r_start, slot, sz)
+    return arrs[0], arrs[-1]

@@ -8,6 +8,7 @@ Each kernel of `csrc/bitonic.cu` replaces one Pallas kernel of
   cross  (K3)  _run_cross / _cross_kernel_body      bitonic.py:948, 579
   local  (K4)  _run_local / _local_kernel_body      bitonic.py:993, 604
   valid= (K5)  _gate_body                           bitonic.py:746
+  local_gated (K6)  _block_call_dma_gated           bitonic.py:793
 
 Every kernel works in place on the carry's flat uint32 buffers (1 to 3 of
 them, see `Mode`), over the first `nunits` grid units only; a unit whose
@@ -15,7 +16,15 @@ them, see `Mode`), over the first `nunits` grid units only; a unit whose
 kernel on an H100 and what its design does about it is noted in the CUDA
 source.
 
-The wrapper (`chunk`, `fused`, `cross`, `local`, all through `run`) runs
+K6 is K4's kernel launched over every C-block of a slot buffer under the
+slot merge's per-block mask, with no prefix clip: on the TPU it exists
+because a BlockSpec pipeline moves every grid step's block, while on
+Hopper a gated thread block returns before its first load and moves
+nothing. It has its own wrapper and launch counter so that a run shows
+the slot merge went through it.
+
+The wrapper (`chunk`, `fused`, `cross`, `local`, `local_gated`, all
+through `run`) runs
 the plain version when the buffers lie on the CPU, and otherwise launches
 the CUDA kernel or raises; it counts each launch in `launches`. The plain
 version (`run_plain`, on the same `spec`) applies the same compare-exchange
@@ -63,9 +72,11 @@ MODES = (KEYS, PAIRS, STABLE)
 LOG_CROSS_W = 6
 CROSS_W = 1 << LOG_CROSS_W
 
-# Launches per kernel since the last reset; "gate" counts the launches
-# that carried a `valid` array (K5). The only mutable state of the port.
-launches = {"chunk": 0, "fused": 0, "cross": 0, "local": 0, "gate": 0}
+# Launches per kernel since the last reset; "gate" counts the launches of
+# K1-K4 that carried a `valid` array (K5; K6 always carries one and counts
+# only as "local_gated"). The only mutable state of the port.
+launches = {"chunk": 0, "fused": 0, "cross": 0, "local": 0, "gate": 0,
+            "local_gated": 0}
 
 
 def reset_launches() -> None:
@@ -94,7 +105,8 @@ class Launch(NamedTuple):
 
 def spec(kernel: str, C: int, *args: int) -> Launch:
     """Launch geometry: spec('chunk', C), spec('local', C, r),
-    spec('fused', C, r_lo, r_hi), spec('cross', C, r, t_lo, span)."""
+    spec('local_gated', C, r), spec('fused', C, r_lo, r_hi),
+    spec('cross', C, r, t_lo, span)."""
     lc = log2(C)
     if C < MIN_CHUNK:
         raise ValueError(f"chunk must be >= {MIN_CHUNK}")
@@ -102,7 +114,7 @@ def spec(kernel: str, C: int, *args: int) -> Launch:
         stages = tuple((pj, pk) for pk in range(1, lc + 1)
                        for pj in range(pk - 1, -1, -1))
         return Launch(kernel, C, C, stages, "vrs_chunk", (lc,))
-    if kernel == "local":
+    if kernel in ("local", "local_gated"):
         (r,) = args
         stages = tuple((pj, lc + r) for pj in range(lc - 1, -1, -1))
         return Launch(kernel, C, C, stages, "vrs_local", (lc, r))
@@ -142,6 +154,8 @@ def _check(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         raise ValueError(f"a {launch.kernel} tile of {launch.tile} "
                          f"{mode.name} elements exceeds the shared-memory "
                          f"cap {mode.smem_cap}")
+    if valid is None and launch.kernel == "local_gated":
+        raise ValueError("local_gated needs a per-block valid mask")
     if valid is not None and (
             valid.dtype != torch.int32 or valid.device != dev
             or not valid.is_contiguous() or valid.numel() < nunits):
@@ -201,9 +215,14 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         err = getattr(lib, launch.cfn)(mode.code, *ptrs, nunits,
                                        *launch.cargs, vptr, stream)
     _build.check(err, f"{launch.cfn} ({mode.name})")
-    launches[launch.kernel] += 1
-    if valid is not None:
-        launches["gate"] += 1
+    for name in counters(launch, valid):
+        launches[name] += 1
+
+
+def counters(launch: Launch, valid) -> list[str]:
+    """The launch counters one launch of the kernel adds to."""
+    gate = valid is not None and launch.kernel != "local_gated"
+    return [launch.kernel] + (["gate"] if gate else [])
 
 
 def run(launch: Launch, arrs, mode: Mode, nunits: int, valid=None) -> None:
@@ -252,3 +271,12 @@ def local(arrs, mode, C, r, nunits, valid=None):
     """Round r's stages at distance < C inside each of the first `nunits`
     chunks."""
     run(spec("local", C, r), arrs, mode, nunits, valid)
+
+
+# -- K6 gated local ---------------------------------------------------------
+
+def local_gated(arrs, mode, C, r, nunits, valid):
+    """Round r's stages at distance < C in each of the first `nunits`
+    C-blocks whose `valid` flag is set; the rest move no bytes. The slot
+    merge's local pass."""
+    run(spec("local_gated", C, r), arrs, mode, nunits, valid)
