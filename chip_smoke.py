@@ -6,12 +6,14 @@
 Phases, each of which fails the run (nonzero exit) if it fails:
   1. the card: name, count, and nvidia-smi's name and power limit;
   2. build: nvcc compiles csrc/ for sm_90a; the -Xptxas -v report shows
-     each kernel's registers, shared memory and spills;
+     each kernel's registers, shared memory and spills, and any spill
+     fails the run;
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      same seeded input, bitwise equal. The network's (chunk, fused, cross,
      local, and the validity gate) in keys, pairs and stable carries, at
      2^20 elements (with extra geometries: clipped grids, a round split
-     into several cross spans) and at the main path's 2^25 shapes. The
+     into several cross spans, the chunk and local kernels at every chunk
+     from 256 to the carry's cap) and at the main path's 2^25 shapes. The
      radix backend's (block sort K7, placement K8) at 2^20 at both digit
      widths, uniform and few-distinct digits, and at the main path's 2^25
      shapes, keys and key-value, every shift of a sort, with a ragged last
@@ -62,7 +64,7 @@ import torch
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch import _build
 from vulkan_radix_sort_tpu_torch.config import (
-    CHUNK_CARRY, CHUNK_KEYS, KEY_SENTINEL, SortConfig)
+    CHUNK_CARRY, CHUNK_KEYS, KEY_SENTINEL, MIN_CHUNK, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import bitonic, bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
@@ -155,16 +157,25 @@ def launch_counts() -> dict[str, int]:
 # -- phase 2: build ----------------------------------------------------------
 
 def build() -> None:
+    """Build the kernels and print the report; fail if any kernel spills
+    registers to local memory."""
+    t0 = time.perf_counter()
     path, report = _build.build()
-    log(f"[build] {path.name}")
+    log(f"[build] {path.name} {time.perf_counter() - t0:.1f} s")
+    name, spills = None, []
     for line in report.splitlines():
         m = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             if "Function properties" in line:
                 args = ",".join(re.findall(r"L[ib](\d+)E", m[2]))
-                log(f"[ptxas] {m[1]}<{args}>")
+                name = f"{m[1]}<{args}>"
+                log(f"[ptxas] {name}")
         elif "Used" in line or "spill" in line:
             log("[ptxas]  ", line.split(":", 1)[-1].strip())
+            if re.search(r"[1-9]\d* bytes spill", line):
+                spills.append(name)
+    if spills:
+        raise AssertionError(f"register spills in {spills}")
     _build.library()
 
 
@@ -172,20 +183,27 @@ def build() -> None:
 
 def _inputs(mode, n: int, gen, device) -> list[torch.Tensor]:
     """Seeded buffers; two-word carries get few distinct keys, so the
-    second word decides."""
+    second word decides. The stable carry's last eighth is tied (max key,
+    pad tiebreak) tuples with distinct riding values, as a count= tail
+    holds them: a kernel must leave each riding value where it is."""
     lo, hi = (0, 13) if mode.words == 2 else (-(1 << 31), 1 << 31)
     k = torch.randint(lo, hi, (n,), generator=gen, device=device,
                       dtype=torch.int32)
     rest = [torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
                           device=device, dtype=torch.int32)
             for _ in range(mode.n_arrays - 1)]
+    if mode.ride:
+        k[-n // 8:] = -1
+        rest[0][-n // 8:] = bitonic.STABLE_PAD_IDX
     return [x.view(torch.uint32) for x in [k] + rest]
 
 
 def kernel_cases(mode, n: int, extra: bool):
     """(kernel, spec args, units) as the main path launches them at n
     elements with the path's chunks; with `extra`, also clipped grids, a
-    single-span earlier round and a round split into more than one span."""
+    single-span earlier round, a round split into more than one span, and
+    the chunk and local kernels at every chunk from MIN_CHUNK to the
+    carry's shared-memory cap."""
     C = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
     r = bk.log2(n // C)
     r_hi = bitonic._fused_rounds(C, r, mode)
@@ -199,6 +217,11 @@ def kernel_cases(mode, n: int, extra: bool):
                   ("local", (C, 2), (n // (C << 2) - 1) << 2),
                   ("cross", (C, r - 1, 0, r - 1), n // (C << (r - 1)))]
     cases += [("cross", (C, r, t_lo, s), n // (C << r)) for t_lo, s in spans]
+    if extra:  # the register kernels' geometry changes with C
+        C = MIN_CHUNK
+        while C <= mode.smem_cap:
+            cases += [("chunk", (C,), n // C), ("local", (C, 1), n // C)]
+            C *= 2
     return cases
 
 
@@ -293,8 +316,12 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)),
                     e = _max_abs_err(a, b)
                     key = "gate" if gated else kernel
                     err[key] = max(err[key], e)
+                    geo = ""
+                    if kernel in ("chunk", "local"):
+                        th, per = bk.block_geometry(kernel, mode, args[0])
+                        geo = f" threads={th} E={per}"
                     log(f"[kernel] n={n} {kernel} {mode.name} {args} "
-                        f"units={units} gated={gated} max_abs_err={e}")
+                        f"units={units}{geo} gated={gated} max_abs_err={e}")
                     if e != 0:
                         raise AssertionError(
                             f"{kernel} {mode.name} {args}: the kernel "
@@ -574,6 +601,41 @@ def plain_ms(rec) -> float:
     return s.elapsed_time(e)
 
 
+LIBRARY_KERNELS = ("chunk", "fused")
+
+
+def library_ms(rec) -> float:
+    """One torch.sort call that computes what a chunk (K1) or fused (K2)
+    launch computes, at its shapes: a sort along dim 1 of the live
+    units as rows of `unit` elements, on seeded int32 keys (the
+    sign-flipped view of uint32 keys: same order, same bytes). The stable
+    carry adds stable=True and the gather of the values; the pairs carry
+    sorts (k << 32 | v) as one int64. A yardstick only: the port never
+    calls it."""
+    launch, mode, valid = rec["launch"], rec["mode"], rec["valid"]
+    units = rec["nunits"] if valid is None else int(
+        valid[:rec["nunits"]].sum())
+    shape = (units, launch.unit)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 9)
+
+    def rand(dtype):
+        info = torch.iinfo(dtype)
+        return torch.randint(info.min, info.max, shape, generator=gen,
+                             device="cuda", dtype=dtype)
+    if mode is bk.STABLE:
+        k, v = rand(torch.int32), rand(torch.int32)
+
+        def fn():
+            sk, perm = torch.sort(k, dim=1, stable=True)
+            return sk, torch.gather(v, 1, perm)
+    else:
+        k = rand(torch.int32 if mode is bk.KEYS else torch.int64)
+
+        def fn():
+            return torch.sort(k, dim=1)
+    return time_fn(fn) * 1e3
+
+
 def path_sorts(n: int = N):
     """The main path's sorts at n, as closures for timing: the network's
     five, and the radix backend's keys, stable kv and keys count=."""
@@ -636,7 +698,8 @@ def kernel_times(sorts) -> tuple[dict, list]:
     torch.cuda.synchronize()
 
     def acc():
-        return dict(n=0, ms=0.0, bound=0.0, by={}, plain=0.0, nplain=0)
+        return dict(n=0, ms=0.0, bound=0.0, by={}, plain=0.0, nplain=0,
+                    lib=0.0, nlib=0)
     per = {k: acc() for k in KERNELS}
     by_tag = {}
     one_run = len(timer.records) // TIMED_RUNS
@@ -644,6 +707,8 @@ def kernel_times(sorts) -> tuple[dict, list]:
         ms = rec["events"][0].elapsed_time(rec["events"][1])
         b, by = bound_ms(rec)
         pm = plain_ms(rec) if i < one_run else None
+        lm = (library_ms(rec) if i < one_run
+              and rec["names"][0] in LIBRARY_KERNELS else None)
         for k in rec["names"]:
             for a in (per[k], by_tag.setdefault((rec["tag"], k), acc())):
                 a["n"] += 1
@@ -653,12 +718,17 @@ def kernel_times(sorts) -> tuple[dict, list]:
                 if pm is not None:
                     a["plain"] += pm
                     a["nplain"] += 1
+                if lm is not None and k in LIBRARY_KERNELS:
+                    a["lib"] += lm
+                    a["nlib"] += 1
     for (tag, k), a in by_tag.items():
+        lib = (f" library_ms/launch={a['lib'] / a['nlib']:.4f}"
+               if a["nlib"] else "")
         log(f"[kernel-time] {tag} {k}: launches/sort={per_sort[tag][k]} "
             f"ms/launch={a['ms'] / a['n']:.4f} "
             f"bound_ms/launch={a['bound'] / a['n']:.4f} "
             f"({max(a['by'], key=a['by'].get)}) "
-            f"plain_ms/launch={a['plain'] / max(a['nplain'], 1):.3f}")
+            f"plain_ms/launch={a['plain'] / max(a['nplain'], 1):.3f}{lib}")
     return per, timer.records
 
 
@@ -1072,7 +1142,7 @@ def main() -> int:
             "plain_ms": p["plain"] / p["nplain"],
             "bound_ms": p["bound"] / p["n"],
             "bound_by": max(p["by"], key=p["by"].get),
-            "library_ms": None,
+            "library_ms": p["lib"] / p["nlib"] if p["nlib"] else None,
         })
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -16,6 +16,8 @@ import pytest
 import torch
 
 from vulkan_radix_sort_tpu.ops import bitonic as jbit
+from vulkan_radix_sort_tpu_torch.config import (
+    CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK)
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
 
@@ -100,6 +102,66 @@ def test_kernel_matches_jax(mode_name, kernel, variant):
     for i in cmp:
         np.testing.assert_array_equal(port[i].numpy(),
                                       np.asarray(out[i]).reshape(-1))
+
+
+@pytest.mark.parametrize("variant", ["full", "gate"])
+@pytest.mark.parametrize("kernel", ["chunk", "local"])
+@pytest.mark.parametrize("mode_name", ["keys", "pairs", "stable"])
+def test_min_chunk_matches_jax(mode_name, kernel, variant):
+    """K1 and K4 at the smallest chunk (256, where a block of the register
+    kernels is one warp) bitwise equal to the Pallas kernels, without and
+    with a validity mask."""
+    mode, jmode = MODES[mode_name]
+    c = MIN_CHUNK
+    port, jarrs, cmp = _data(mode_name, seed=40 + 2 * (kernel == "local")
+                             + (variant == "gate"))
+    units = NP2 // c
+    valid = None
+    if variant == "gate":
+        valid = np.ones(units, np.int32)
+        valid[::3] = 0
+    tv = None if valid is None else torch.from_numpy(valid)
+    jv = None if valid is None else jnp.asarray(valid)
+    if kernel == "chunk":
+        bk.chunk(port, mode, c, units, tv)
+        out = jbit._run_chunk(jarrs, c, jmode, True, NP2 // LANES, jv)
+    else:
+        bk.local(port, mode, c, 2, units, tv)
+        out = jbit._run_local(jarrs, c, 2, jmode, True, NP2 // LANES, jv)
+    for i in cmp:
+        np.testing.assert_array_equal(port[i].numpy(),
+                                      np.asarray(out[i]).reshape(-1))
+
+
+@pytest.mark.parametrize("kernel", ["chunk", "local", "local_gated"])
+@pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
+def test_register_kernel_geometry(mode, kernel):
+    """Every chunk the config admits (MIN_CHUNK to the carry's cap) gives a
+    block of one warp to 1024 threads that holds the chunk exactly, with a
+    whole number of 16-byte vectors per thread and array."""
+    c = MIN_CHUNK
+    while c <= mode.smem_cap:
+        threads, per = bk.block_geometry(kernel, mode, c)
+        assert 32 <= threads <= 1024 and threads & (threads - 1) == 0
+        assert threads * per == c and per % 4 == 0
+        c *= 2
+    assert bk.block_geometry(kernel, mode, CHUNK_KEYS if mode is bk.KEYS
+                             else CHUNK_CARRY) == (512, 16 // mode.words)
+
+
+def test_register_kernel_geometry_refuses_tile_kernels():
+    with pytest.raises(ValueError):
+        bk.block_geometry("fused", bk.KEYS, C)
+
+
+def test_unaligned_buffer_is_refused():
+    """The vector loads need 16-byte aligned buffers: an offset view is
+    refused before any launch, an aligned one passes."""
+    k = torch.zeros(NP2 + 4, dtype=torch.int32).view(torch.uint32)
+    bk.check_aligned([k, k[4:]])
+    for off in (1, 2, 3):
+        with pytest.raises(ValueError, match="aligned"):
+            bk.check_aligned([k, k[off:]])
 
 
 @pytest.mark.parametrize("mode_name", ["keys", "stable"])

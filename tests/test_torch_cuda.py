@@ -17,7 +17,7 @@ import torch.distributed as dist
 
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import (
-    CHUNK_CARRY, CHUNK_KEYS, SortConfig)
+    CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
@@ -66,6 +66,51 @@ def test_cuda_kernels_match_plain(cuda_device, mode):
             torch.cuda.synchronize()
             for x, y in zip(a, b):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def _chunk_cases():
+    """(mode, C) for every chunk the config admits in every carry."""
+    cases = []
+    for mode in bk.MODES:
+        c = MIN_CHUNK
+        while c <= mode.smem_cap:
+            cases.append(pytest.param(mode, c, id=f"{mode.name}-{c}"))
+            c *= 2
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,C", _chunk_cases())
+def test_cuda_register_kernels_every_chunk(cuda_device, mode, C):
+    """K1 and K4 bitwise equal to their plain versions at every chunk, whose
+    register and thread geometry changes with C, with and without a
+    validity mask; the stable carry's riding values under tied tuples stay
+    put."""
+    rng = np.random.default_rng(C + mode.code)
+    n = 1 << 18
+    units = n // C
+    flags = torch.from_numpy(rng.integers(0, 2, units).astype(np.int32))
+    for launch in (bk.spec("chunk", C), bk.spec("local", C, 1)):
+        for valid in (None, flags.to(cuda_device)):
+            a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
+                 .to(cuda_device) for _ in range(mode.n_arrays)]
+            if mode is bk.STABLE:  # a tail of tied (max, pad) tuples
+                a[0].view(torch.int32)[n // 2:] = -1
+                a[1].view(torch.int32)[n // 2:] = 0x7FFFFFFF
+            b = [x.clone() for x in a]
+            bk.run(launch, a, mode, units, valid)
+            bk.run_plain(launch, b, mode, units, valid)
+            torch.cuda.synchronize()
+            for x, y in zip(a, b):
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_unaligned_buffer_is_refused(cuda_device):
+    k = torch.zeros(1 << 12, dtype=torch.int32,
+                    device=cuda_device).view(torch.uint32)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.local([k[1:1 + 2048]], bk.KEYS, 1024, 1, 2)
 
 
 @pytest.mark.cuda

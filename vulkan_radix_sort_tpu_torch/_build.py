@@ -1,7 +1,9 @@
 """Build and load the CUDA kernels of `csrc/` on first use.
 
 The sources have a plain `extern "C"` interface, so they build with nvcc
-alone in seconds (no PyTorch headers) and load with ctypes. Each source
+alone (no PyTorch headers) and load with ctypes; `bitonic.cu` takes about
+a minute and a half, for its fully unrolled chunk and local kernels at
+every chunk size. Each source
 compiles to an object in its own nvcc process, all started together, and
 the objects link into one library in `_build/` beside this file, named by
 a hash of the sources and flags, so a changed source builds anew and an

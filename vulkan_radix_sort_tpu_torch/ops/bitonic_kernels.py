@@ -14,7 +14,9 @@ Every kernel works in place on the carry's flat uint32 buffers (1 to 3 of
 them, see `Mode`), over the first `nunits` grid units only; a unit whose
 `valid` flag (int32, one per unit) is 0 is left as it is. What bounds each
 kernel on an H100 and what its design does about it is noted in the CUDA
-source.
+source. The chunk and local kernels hold E elements per thread in
+registers (`block_geometry`) and load them as 16-byte vectors, so their
+buffers must be 16-byte aligned (`check_aligned`).
 
 K6 is K4's kernel launched over every C-block of a slot buffer under the
 slot merge's per-block mask, with no prefix clip: on the TPU it exists
@@ -71,6 +73,39 @@ MODES = (KEYS, PAIRS, STABLE)
 # consecutive elements per row of a cross tile; kCrossW in csrc/bitonic.cu
 LOG_CROSS_W = 6
 CROSS_W = 1 << LOG_CROSS_W
+
+# The chunk and local kernels keep E elements per thread in registers
+# (net_threads and kNetThreads in csrc/bitonic.cu): 16 keys or 8 elements of
+# a two-word carry per thread, raised so a block has at most NET_THREADS
+# threads and lowered so it has at least one warp; a thread that would
+# hold REG_WORDS words or more (each carry's largest chunk) takes
+# WIDE_THREADS threads instead, which leaves it twice the registers.
+NET_THREADS = 512
+WIDE_THREADS = 256
+REG_WORDS = 64
+WARP = 32
+VECTOR_BYTES = 16  # their loads and stores are 16-byte vectors
+
+
+def block_geometry(kernel: str, mode: Mode, C: int) -> tuple[int, int]:
+    """(threads, elements per thread) of a chunk or local launch at C."""
+    if kernel not in ("chunk", "local", "local_gated"):
+        raise ValueError(f"{kernel} keeps its tile in shared memory")
+    threads = min(max(C // (16 if mode.words == 1 else 8), WARP), NET_THREADS)
+    if C // threads * mode.n_arrays >= REG_WORDS:
+        threads = WIDE_THREADS
+    return threads, C // threads
+
+
+def check_aligned(arrs) -> None:
+    """Raise unless every buffer starts on a 16-byte boundary, as the
+    kernels' vector loads and stores need (a view such as x[1:] does
+    not)."""
+    for a in arrs:
+        if a.data_ptr() % VECTOR_BYTES:
+            raise ValueError(f"buffer at {a.data_ptr():#x} is not "
+                             f"{VECTOR_BYTES}-byte aligned")
+
 
 # Launches per kernel since the last reset; "gate" counts the launches of
 # K1-K4 that carried a `valid` array (K5; K6 always carries one and counts
@@ -207,6 +242,7 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         raise ValueError(f"no kernel for device {dev}")
     if nunits == 0:
         return
+    check_aligned(arrs)
     lib = _build.library()
     ptrs = [a.data_ptr() for a in arrs] + [None] * (3 - len(arrs))
     vptr = None if valid is None else valid.data_ptr()
