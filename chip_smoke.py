@@ -5,19 +5,21 @@
 
 Phases, each of which fails the run (nonzero exit) if it fails:
   1. the card: name, count, and nvidia-smi's name and power limit;
-  2. build: nvcc compiles csrc/ for sm_90a; the -Xptxas -v report shows
-     each kernel's registers, shared memory and spills, and any spill
-     fails the run;
+  2. build: nvcc compiles csrc/ for sm_90a, one process per source; the
+     -Xptxas -v report shows each kernel's registers, shared memory and
+     spills; any spill fails the run, and so does a report that does not
+     name every instantiation (INSTANTIATIONS);
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      same seeded input, bitwise equal. The network's (chunk, fused, cross,
      local, and the validity gate) in keys, pairs and stable carries, at
      2^20 elements (with extra geometries: clipped grids, a round split
      into several cross spans, the chunk and local kernels at every chunk
-     from 256 to the carry's cap) and at the main path's 2^25 shapes. The
-     radix backend's (block sort K7, placement K8) at 2^20 at both digit
-     widths, uniform and few-distinct digits, and at the main path's 2^25
-     shapes, keys and key-value, every shift of a sort, with a ragged last
-     block of sentinel pads;
+     from 256 to the carry's cap, the fused kernel at every group from 512
+     to the cap) and at the main path's 2^25 shapes. The radix backend's
+     (block sort K7, placement K8) at 2^20 at every block from 512 to
+     16384 and both digit widths, with uniform keys, few distinct digits
+     and one key only, and at the main path's 2^25 shapes, keys and
+     key-value, with a ragged last block of sentinel pads;
   4. main path, once per backend (the network through 'auto', then
      'radix'): the public entry points (vrs.sort, Sorter.sort,
      Sorter.sort_key_value) at n = 2^25 and the other shapes below, each
@@ -64,7 +66,8 @@ import torch
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch import _build
 from vulkan_radix_sort_tpu_torch.config import (
-    CHUNK_CARRY, CHUNK_KEYS, KEY_SENTINEL, MIN_CHUNK, SortConfig)
+    CHUNK_CARRY, CHUNK_KEYS, KEY_SENTINEL, MAX_RADIX_BLOCK, MIN_CHUNK,
+    RADIX_THREADS, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import bitonic, bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
@@ -100,24 +103,33 @@ OPS_PER_CE = {"keys": 2, "pairs": 2 + 4, "stable": 2 + 6}
 OPS_PER_KEY = {"block_sort": 4, "place": 2}
 
 BITONIC_CU = "vulkan_radix_sort_tpu_torch/csrc/bitonic.cu"
+FUSED_CU = "vulkan_radix_sort_tpu_torch/csrc/fused.cu"
 RADIX_CU = "vulkan_radix_sort_tpu_torch/csrc/radix.cu"
-KERNELS = {  # counter name -> (label, source, the TPU kernel it replaces)
+REGS = "redesigned: registers, warp shuffles, a transpose pair per phase"
+KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
     "chunk": ("K1 chunk", BITONIC_CU,
-              "vulkan_radix_sort_tpu/ops/bitonic.py:934"),
-    "fused": ("K2 fused rounds", BITONIC_CU,
-              "vulkan_radix_sort_tpu/ops/bitonic.py:723"),
+              "vulkan_radix_sort_tpu/ops/bitonic.py:934", REGS),
+    "fused": ("K2 fused rounds", FUSED_CU,
+              "vulkan_radix_sort_tpu/ops/bitonic.py:723",
+              REGS + " (K1's last phases on a group)"),
     "cross": ("K3 cross", BITONIC_CU,
-              "vulkan_radix_sort_tpu/ops/bitonic.py:948"),
+              "vulkan_radix_sort_tpu/ops/bitonic.py:948",
+              "first design: shared-memory tile, a barrier per stage"),
     "local": ("K4 local", BITONIC_CU,
-              "vulkan_radix_sort_tpu/ops/bitonic.py:993"),
+              "vulkan_radix_sort_tpu/ops/bitonic.py:993", REGS),
     "gate": ("K5 validity gate", BITONIC_CU,
-             "vulkan_radix_sort_tpu/ops/bitonic.py:746"),
+             "vulkan_radix_sort_tpu/ops/bitonic.py:746",
+             "the valid flags of K1-K4"),
     "local_gated": ("K6 gated local (slot merge)", BITONIC_CU,
-                    "vulkan_radix_sort_tpu/ops/bitonic.py:793"),
+                    "vulkan_radix_sort_tpu/ops/bitonic.py:793",
+                    "K4 under the slot merge's block mask"),
     "block_sort": ("K7 radix block sort", RADIX_CU,
-                   "vulkan_radix_sort_tpu/ops/block_sort.py:154"),
+                   "vulkan_radix_sort_tpu/ops/block_sort.py:154",
+                   "redesigned: match-based block rank in registers, "
+                   "16-byte copies, one scatter"),
     "place": ("K8 radix placement", RADIX_CU,
-              "vulkan_radix_sort_tpu/ops/stream_place.py:228"),
+              "vulkan_radix_sort_tpu/ops/stream_place.py:228",
+              "first design: each key written at its run's offset"),
 }
 RADIX_KERNELS = ("block_sort", "place")
 MERGE_KERNELS = ("local_gated",)
@@ -156,26 +168,43 @@ def launch_counts() -> dict[str, int]:
 
 # -- phase 2: build ----------------------------------------------------------
 
+# Instantiations each kernel template has in csrc/: the report must name
+# every one, so that the spill check covers them all. chunk and local: C
+# from 2^8 to the cap, 8 for keys and 7 for each two-word carry; fused: G
+# from 2^9 to the cap, 7 + 6 + 6; block sort: keys or kv, 4 to 32 keys a
+# thread, 4- or 8-bit digits.
+INSTANTIATIONS = {"chunk_kernel": 22, "local_kernel": 22, "cross_kernel": 3,
+                  "fused_kernel": 19, "block_sort_kernel": 16,
+                  "place_kernel": 2}
+
+
 def build() -> None:
     """Build the kernels and print the report; fail if any kernel spills
-    registers to local memory."""
+    registers to local memory, or if the report does not name every
+    instantiation."""
     t0 = time.perf_counter()
     path, report = _build.build()
     log(f"[build] {path.name} {time.perf_counter() - t0:.1f} s")
-    name, spills = None, []
+    name, spills, names = None, [], {}
     for line in report.splitlines():
         m = re.search(r"\d([a-z_]+_kernel)I((?:L[ib]\d+E)+)E", line)
         if m:
             if "Function properties" in line:
                 args = ",".join(re.findall(r"L[ib](\d+)E", m[2]))
                 name = f"{m[1]}<{args}>"
+                names.setdefault(m[1], set()).add(name)
                 log(f"[ptxas] {name}")
         elif "Used" in line or "spill" in line:
             log("[ptxas]  ", line.split(":", 1)[-1].strip())
             if re.search(r"[1-9]\d* bytes spill", line):
                 spills.append(name)
+    counts = {k: len(v) for k, v in names.items()}
+    log("[ptxas] instantiations:", json.dumps(counts))
     if spills:
         raise AssertionError(f"register spills in {spills}")
+    if counts != INSTANTIATIONS:
+        raise AssertionError(f"the report names {counts}, not "
+                             f"{INSTANTIATIONS}")
     _build.library()
 
 
@@ -201,9 +230,11 @@ def _inputs(mode, n: int, gen, device) -> list[torch.Tensor]:
 def kernel_cases(mode, n: int, extra: bool):
     """(kernel, spec args, units) as the main path launches them at n
     elements with the path's chunks; with `extra`, also clipped grids, a
-    single-span earlier round, a round split into more than one span, and
-    the chunk and local kernels at every chunk from MIN_CHUNK to the
-    carry's shared-memory cap."""
+    single-span earlier round, a round split into more than one span, the
+    chunk and local kernels at every chunk from MIN_CHUNK to the carry's
+    shared-memory cap, and the fused kernel at every group from two
+    MIN_CHUNK chunks to the cap (groups of MIN_CHUNK chunks and of two
+    chunks, from round 1 and from the last round alone)."""
     C = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
     r = bk.log2(n // C)
     r_hi = bitonic._fused_rounds(C, r, mode)
@@ -217,11 +248,18 @@ def kernel_cases(mode, n: int, extra: bool):
                   ("local", (C, 2), (n // (C << 2) - 1) << 2),
                   ("cross", (C, r - 1, 0, r - 1), n // (C << (r - 1)))]
     cases += [("cross", (C, r, t_lo, s), n // (C << r)) for t_lo, s in spans]
-    if extra:  # the register kernels' geometry changes with C
+    if extra:  # the register kernels' geometry changes with C and G
         C = MIN_CHUNK
         while C <= mode.smem_cap:
             cases += [("chunk", (C,), n // C), ("local", (C, 1), n // C)]
             C *= 2
+        G = 2 * MIN_CHUNK
+        while G <= mode.smem_cap:
+            for C in sorted({MIN_CHUNK, G // 2}):
+                top = bk.log2(G // C)
+                cases += [("fused", (C, r_lo, top), n // G)
+                          for r_lo in sorted({1, top})]
+            G *= 2
     return cases
 
 
@@ -245,48 +283,73 @@ def _radix_inputs(n: int, hi: int | None, gen, device):
     return k.view(torch.uint32), v.view(torch.uint32)
 
 
+def _radix_cases(extra: bool):
+    """(block, bits, key bound, shifts) of the K7/K8 checks: the main
+    path's geometry at every shift; with `extra`, every block from
+    RADIX_THREADS to MAX_RADIX_BLOCK (K7's threads and keys a thread
+    change with it) at both digit widths, with uniform keys, few distinct
+    digits (keys < 16) and one key only (every lane a peer), at every
+    shift at the default block and at the lowest and highest elsewhere."""
+    if not extra:
+        return [(RADIX.block, RADIX.digit_bits, None,
+                 range(0, 32, RADIX.digit_bits))]
+    cases = []
+    block = RADIX_THREADS
+    while block <= MAX_RADIX_BLOCK:
+        for bits in (4, 8):
+            shifts = (range(0, 32, bits) if block == RADIX.block
+                      else (0, 32 - bits))
+            cases += [(block, bits, hi, shifts) for hi in (None, 16, 1)]
+        block *= 2
+    return cases
+
+
 def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
                         device="cuda") -> dict[str, int]:
     """K7 and K8 against their plain versions on the same seeded inputs,
-    keys and key-value, at every shift of a sort: at 2^20 at both digit
-    widths with uniform and few-distinct keys, and at the main path's 2^25
-    shapes. K8 takes K7's plain output, so its runs are real. Returns max
-    |err| per kernel."""
+    keys and key-value (`_radix_cases`): at 2^20 at every block and both
+    digit widths, and at the main path's 2^25 shapes. K8 takes K7's plain
+    output, so its runs are real. Returns max |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     err = {name: 0 for name in RADIX_KERNELS}
     for n, extra in sizes:
-        for bits in ((4, 8) if extra else (RADIX.digit_bits,)):
-            cfg = SortConfig(backend="radix", digit_bits=bits)
-            for hi in ((None, 16) if extra else (None,)):
-                for kv in (False, True):
-                    for p in range(cfg.num_passes):
-                        keys, vals = _radix_inputs(n, hi, gen, device)
-                        vals = vals if kv else None
-                        kw = dict(shift=p * bits, config=cfg, key_value=kv)
-                        got7 = k7.block_sort(keys, vals, **kw)
-                        want7 = k7.block_sort_plain(keys, vals, **kw)
-                        y, hist = want7[0], want7[-1]
-                        args8 = (y, hist, radix._spine(hist),
-                                 want7[1] if kv else None)
-                        kw8 = dict(config=cfg, key_value=kv)
-                        got8 = k8.stream_place(*args8, **kw8)
-                        want8 = k8.stream_place_plain(*args8, **kw8)
-                        if not kv:
-                            got8, want8 = (got8,), (want8,)
-                        sync(device)
-                        for name, got, want in (("block_sort", got7, want7),
-                                                ("place", got8, want8)):
-                            e = _max_abs_err(got, want)
-                            err[name] = max(err[name], e)
-                            log(f"[kernel] n={n} {name} bits={bits} "
-                                f"{'kv' if kv else 'keys'} shift={p * bits} "
-                                f"keys<{hi or 2 ** 32} max_abs_err={e}")
-                            if e != 0:
-                                raise AssertionError(
-                                    f"{name} bits={bits} shift={p * bits}: "
-                                    "the kernel differs from its plain "
-                                    "version")
-                        del keys, vals, got7, want7, got8, want8, args8
+        for block, bits, hi, shifts in _radix_cases(extra):
+            cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
+            if n % block:
+                continue
+            for kv in (False, True):
+                for shift in shifts:
+                    keys, vals = _radix_inputs(n, hi, gen, device)
+                    vals = vals if kv else None
+                    kw = dict(shift=shift, config=cfg, key_value=kv)
+                    got7 = k7.block_sort(keys, vals, **kw)
+                    want7 = k7.block_sort_plain(keys, vals, **kw)
+                    y, hist = want7[0], want7[-1]
+                    args8 = (y, hist, radix._spine(hist),
+                             want7[1] if kv else None)
+                    kw8 = dict(config=cfg, key_value=kv)
+                    got8 = k8.stream_place(*args8, **kw8)
+                    want8 = k8.stream_place_plain(*args8, **kw8)
+                    if not kv:
+                        got8, want8 = (got8,), (want8,)
+                    sync(device)
+                    threads, per = k7.sort_geometry(block)
+                    for name, got, want in (("block_sort", got7, want7),
+                                            ("place", got8, want8)):
+                        e = _max_abs_err(got, want)
+                        err[name] = max(err[name], e)
+                        geo = (f" threads={threads} keys/thread={per}"
+                               if name == "block_sort" else "")
+                        log(f"[kernel] n={n} {name} block={block}{geo} "
+                            f"bits={bits} {'kv' if kv else 'keys'} "
+                            f"shift={shift} keys<{hi or 2 ** 32} "
+                            f"max_abs_err={e}")
+                        if e != 0:
+                            raise AssertionError(
+                                f"{name} block={block} bits={bits} "
+                                f"shift={shift}: the kernel differs from "
+                                "its plain version")
+                    del keys, vals, got7, want7, got8, want8, args8
     return err
 
 
@@ -317,8 +380,9 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)),
                     key = "gate" if gated else kernel
                     err[key] = max(err[key], e)
                     geo = ""
-                    if kernel in ("chunk", "local"):
-                        th, per = bk.block_geometry(kernel, mode, args[0])
+                    if kernel in bk.REG_KERNELS:
+                        th, per = bk.block_geometry(kernel, mode,
+                                                    launch.unit)
                         geo = f" threads={th} E={per}"
                     log(f"[kernel] n={n} {kernel} {mode.name} {args} "
                         f"units={units}{geo} gated={gated} max_abs_err={e}")
@@ -1133,11 +1197,12 @@ def main() -> int:
     launches["local_gated"] = dist_launches["local_gated"]
     per["local_gated"] = merge_times(slot_bufs, card)["local_gated"]
     rows = []
-    for key, (label, source, replaces) in KERNELS.items():
+    for key, (label, source, replaces, status) in KERNELS.items():
         p = per[key]
         rows.append({
             "name": label, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[key],
+            "replaces": replaces, "status": status,
+            "launches": launches[key],
             "max_abs_err": err[key], "ms": p["ms"] / p["n"],
             "plain_ms": p["plain"] / p["nplain"],
             "bound_ms": p["bound"] / p["n"],

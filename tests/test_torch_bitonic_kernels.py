@@ -133,25 +133,38 @@ def test_min_chunk_matches_jax(mode_name, kernel, variant):
                                       np.asarray(out[i]).reshape(-1))
 
 
-@pytest.mark.parametrize("kernel", ["chunk", "local", "local_gated"])
+@pytest.mark.parametrize("kernel", ["chunk", "local", "local_gated",
+                                    "fused"])
 @pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
 def test_register_kernel_geometry(mode, kernel):
-    """Every chunk the config admits (MIN_CHUNK to the carry's cap) gives a
-    block of one warp to 1024 threads that holds the chunk exactly, with a
-    whole number of 16-byte vectors per thread and array."""
-    c = MIN_CHUNK
+    """Every chunk the config admits (MIN_CHUNK to the carry's cap), and
+    every fused group (two MIN_CHUNK chunks to the cap), gives a block of
+    one warp to 1024 threads that holds it exactly, with a whole number of
+    16-byte vectors per thread and array, and every merge stage reachable
+    by registers, lanes, or layout B's registers and lanes (csrc/bitonic.cu,
+    Regs: log2 of the elements at most 2 log2 E + 10)."""
+    fused = kernel == "fused"
+    c = 2 * MIN_CHUNK if fused else MIN_CHUNK
     while c <= mode.smem_cap:
         threads, per = bk.block_geometry(kernel, mode, c)
         assert 32 <= threads <= 1024 and threads & (threads - 1) == 0
         assert threads * per == c and per % 4 == 0
+        assert bk.log2(c) <= 2 * bk.log2(per) + 10
         c *= 2
-    assert bk.block_geometry(kernel, mode, CHUNK_KEYS if mode is bk.KEYS
-                             else CHUNK_CARRY) == (512, 16 // mode.words)
+    chunk = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
+    if fused:  # the main path's group of four chunks, the carry's cap
+        assert bk.block_geometry(kernel, mode, 4 * chunk) == {
+            "keys": (1024, 32), "pairs": (1024, 16),
+            "stable": (512, 32)}[mode.name]
+    else:
+        assert bk.block_geometry(kernel, mode, chunk) == (512, 16 //
+                                                         mode.words)
 
 
 def test_register_kernel_geometry_refuses_tile_kernels():
+    """The cross kernel is the one left with a shared-memory tile."""
     with pytest.raises(ValueError):
-        bk.block_geometry("fused", bk.KEYS, C)
+        bk.block_geometry("cross", bk.KEYS, C)
 
 
 def test_unaligned_buffer_is_refused():
@@ -171,6 +184,20 @@ def test_fused_two_rounds_matches_jax(mode_name):
     port, jarrs, cmp = _data(mode_name, seed=5)
     bk.fused(port, mode, C, 1, 2, 1)
     out = jbit._run_fused_rounds(jarrs, C, 1, 2, jmode, True)
+    for i in cmp:
+        np.testing.assert_array_equal(port[i].numpy(),
+                                      np.asarray(out[i]).reshape(-1))
+
+
+@pytest.mark.parametrize("mode_name", ["keys", "pairs", "stable"])
+def test_fused_from_round_two_matches_jax(mode_name):
+    """K2 over round 2 alone (r_lo = r_hi = 2: its one phase enters at
+    depth log2 C + 1 and ends on the group's parity), bitwise equal to the
+    Pallas kernel."""
+    mode, jmode = MODES[mode_name]
+    port, jarrs, cmp = _data(mode_name, seed=15)
+    bk.fused(port, mode, C, 2, 2, 1)
+    out = jbit._run_fused_rounds(jarrs, C, 2, 2, jmode, True)
     for i in cmp:
         np.testing.assert_array_equal(port[i].numpy(),
                                       np.asarray(out[i]).reshape(-1))

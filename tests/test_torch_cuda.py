@@ -105,12 +105,96 @@ def test_cuda_register_kernels_every_chunk(cuda_device, mode, C):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _fused_cases():
+    """(mode, G) for every group the fused kernel takes: two MIN_CHUNK
+    chunks up to the carry's cap."""
+    cases = []
+    for mode in bk.MODES:
+        g = 2 * MIN_CHUNK
+        while g <= mode.smem_cap:
+            cases.append(pytest.param(mode, g, id=f"{mode.name}-{g}"))
+            g *= 2
+    return cases
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,G", _fused_cases())
+def test_cuda_fused_every_group(cuda_device, mode, G):
+    """K2 bitwise equal to its plain version at every group size, whose
+    register and thread geometry changes with G: groups of 256-chunks and
+    of two chunks, from round 1 and from the last round alone, with and
+    without a validity mask, the stable carry's riding values under tied
+    tuples staying put."""
+    rng = np.random.default_rng(G + mode.code)
+    n = 1 << 18
+    units = n // G
+    flags = torch.from_numpy(rng.integers(0, 2, units).astype(np.int32))
+    launches = []
+    for C in sorted({MIN_CHUNK, G // 2}):
+        r_hi = bk.log2(G // C)
+        launches += [bk.spec("fused", C, r_lo, r_hi)
+                     for r_lo in sorted({1, r_hi})]
+    for launch in launches:
+        for valid in (None, flags.to(cuda_device)):
+            a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
+                 .to(cuda_device) for _ in range(mode.n_arrays)]
+            if mode is bk.STABLE:  # a tail of tied (max, pad) tuples
+                a[0].view(torch.int32)[n // 2:] = -1
+                a[1].view(torch.int32)[n // 2:] = 0x7FFFFFFF
+            b = [x.clone() for x in a]
+            bk.run(launch, a, mode, units, valid)
+            bk.run_plain(launch, b, mode, units, valid)
+            torch.cuda.synchronize()
+            for x, y in zip(a, b):
+                assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block", [512 << i for i in range(6)])
+def test_cuda_block_sort_every_block(cuda_device, block, bits):
+    """K7 bitwise equal to its plain version at every block size, whose
+    thread geometry changes with the block, at both digit widths: uniform
+    keys, five distinct keys, and keys that differ everywhere but in the
+    digit (every lane of a warp a peer), keys and kv, at the lowest and
+    the highest shift, with a last block closed by sentinel pads."""
+    cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
+    rng = np.random.default_rng(block + bits)
+    n = 1 << 18
+    for kind in ("uniform", "few", "one digit"):
+        for shift in (0, 32 - bits):
+            keys = _u32(n, int(rng.integers(1 << 30)))
+            if kind == "few":
+                keys = rng.choice(keys[:5], n)
+            elif kind == "one digit":
+                digit = np.uint32(((1 << bits) - 1) << shift)
+                keys = (keys & ~digit) | np.uint32(5 << shift)
+            keys[-777:] = 0xFFFFFFFF
+            dk = torch.from_numpy(keys).to(cuda_device)
+            dv = torch.from_numpy(_u32(n, shift)).to(cuda_device)
+            for kv in (False, True):
+                vals = dv if kv else None
+                want = k7.block_sort_plain(dk, vals, shift=shift, config=cfg,
+                                           key_value=kv)
+                got = k7.block_sort(dk, vals, shift=shift, config=cfg,
+                                    key_value=kv)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), (kind, shift, kv)
+
+
 @pytest.mark.cuda
 def test_cuda_unaligned_buffer_is_refused(cuda_device):
     k = torch.zeros(1 << 12, dtype=torch.int32,
                     device=cuda_device).view(torch.uint32)
     with pytest.raises(ValueError, match="aligned"):
         bk.local([k[1:1 + 2048]], bk.KEYS, 1024, 1, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.fused([k[1:1 + 2048]], bk.KEYS, 256, 1, 3, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        k7.block_sort(k[1:1 + 2048], shift=0,
+                      config=SortConfig(backend="radix", block=512))
 
 
 @pytest.mark.cuda

@@ -23,7 +23,8 @@ from vulkan_radix_sort_tpu.ops.block_sort import block_sort as jax_block_sort
 from vulkan_radix_sort_tpu.ops.radix import _pad2d, _spine as jax_spine
 from vulkan_radix_sort_tpu.ops.stream_place import (
     stream_place as jax_stream_place)
-from vulkan_radix_sort_tpu_torch.config import SortConfig
+from vulkan_radix_sort_tpu_torch.config import (
+    MAX_RADIX_BLOCK, RADIX_THREADS, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
@@ -73,6 +74,33 @@ def test_block_sort_matches_jax(shift, key_value, skew):
     if key_value:
         np.testing.assert_array_equal(got[1].numpy(), _flat(want[1]))
     np.testing.assert_array_equal(got[-1].numpy(), np.asarray(want[-1])[:, :R])
+
+
+@pytest.mark.parametrize("key_value", [False, True])
+@pytest.mark.parametrize("kind", ["one digit", "all equal"])
+def test_block_sort_degenerate_blocks_match_jax(kind, key_value):
+    """K7 where every lane of a warp is a peer, bitwise equal to the Pallas
+    block sort: keys that differ everywhere but in the digit at `shift`
+    (every position set by stability alone), and keys all equal."""
+    shift = 8
+    if kind == "one digit":
+        keys = (_keys(77 + key_value) & ~np.uint32(0xF << shift)) \
+            | np.uint32(0x9 << shift)
+    else:
+        keys = np.full(N, 0x12345978, np.uint32)  # digit 9 too
+    vals = _vals(77)
+    got = k7.block_sort(torch.from_numpy(keys),
+                        torch.from_numpy(vals) if key_value else None,
+                        shift=shift, config=CFG, key_value=key_value)
+    want = jax_block_sort(_tile(keys, 0xFFFFFFFF),
+                          _tile(vals, 0) if key_value else None,
+                          shift=shift, config=JCFG, key_value=key_value,
+                          interpret=True)
+    np.testing.assert_array_equal(got[0].numpy(), _flat(want[0]))
+    if key_value:
+        np.testing.assert_array_equal(got[1].numpy(), _flat(want[1]))
+    np.testing.assert_array_equal(got[-1].numpy(), np.asarray(want[-1])[:, :R])
+    assert (got[-1].numpy()[:, 9] == B).all()
 
 
 @pytest.mark.parametrize("key_value", [False, True])
@@ -130,13 +158,14 @@ def test_spine_and_block_offsets_match_numpy():
 @pytest.mark.parametrize("key_value", [False, True])
 @pytest.mark.parametrize("shift", [0, 8, 24])
 def test_plain_kernels_8bit_match_numpy(shift, key_value):
-    """At the port's own geometry (8-bit digits, 4096-key blocks): K7 is a
-    stable digit sort of each block with its bincount, and K7 then K8 is a
-    stable digit sort of the whole input."""
+    """At the port's own geometry (8-bit digits, the default blocks): K7 is
+    a stable digit sort of each block with its bincount, and K7 then K8 is
+    a stable digit sort of the whole input."""
     cfg = SortConfig()
     n = 4 * cfg.block
     keys = _keys(shift + 1, n=n)
-    keys[::5] = keys[1::5] & np.uint32(0xFF << shift)  # ties
+    ties = keys[1::5] & np.uint32(0xFF << shift)
+    keys[::5][:ties.size] = ties
     vals = _vals(shift, n=n)
     tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
     out = k7.block_sort(tk, tv if key_value else None, shift=shift,
@@ -158,6 +187,20 @@ def test_plain_kernels_8bit_match_numpy(shift, key_value):
     np.testing.assert_array_equal(placed[0].numpy(), keys[order])
     if key_value:
         np.testing.assert_array_equal(placed[1].numpy(), vals[order])
+
+
+def test_block_sort_geometry():
+    """Every block SortConfig admits gives K7 whole warps of at most
+    RADIX_THREADS threads holding 4 to 32 keys each, a whole number of
+    16-byte vectors (csrc/radix.cu, sort_threads)."""
+    block = RADIX_THREADS
+    while block <= MAX_RADIX_BLOCK:
+        SortConfig(block=block)
+        threads, per = k7.sort_geometry(block)
+        assert threads * per == block and threads % 32 == 0
+        assert threads <= RADIX_THREADS and per % 4 == 0 and 4 <= per <= 32
+        block *= 2
+    assert k7.sort_geometry(SortConfig().block) == (512, 32)
 
 
 def test_cpu_wrappers_run_plain_and_count_no_launch():

@@ -16,7 +16,7 @@ import torch
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu.config import SortConfig as JaxConfig
 from vulkan_radix_sort_tpu.ops import radix as jax_radix
-from vulkan_radix_sort_tpu_torch.config import SortConfig
+from vulkan_radix_sort_tpu_torch.config import RADIX_BLOCK, SortConfig
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
@@ -178,8 +178,8 @@ def test_storage_requirements_radix(max_n):
     """Two padded key buffers (and two value buffers), plus one pass's
     histogram and run offsets and the spine's two digit rows."""
     s = vrs.Sorter(max_n, device="cpu", config=SortConfig(backend="radix"))
-    padded = -(-max_n // 4096) * 4096
-    tables = 4 * (2 * (padded // 4096) * 256 + 2 * 256)
+    padded = -(-max_n // RADIX_BLOCK) * RADIX_BLOCK
+    tables = 4 * (2 * (padded // RADIX_BLOCK) * 256 + 2 * 256)
     assert s.storage_requirements() == 4 * 2 * padded + tables
     assert s.storage_requirements(True) == 4 * 4 * padded + tables
     s4 = vrs.Sorter(max_n, device="cpu", config=CONFIGS[4])

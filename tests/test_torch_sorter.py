@@ -25,7 +25,7 @@ import torch
 import vulkan_radix_sort_tpu as jvrs
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import (
-    CHUNK_CARRY, CHUNK_KEYS, SortConfig, config_from_jax)
+    CHUNK_CARRY, CHUNK_KEYS, RADIX_BLOCK, SortConfig, config_from_jax)
 from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -177,7 +177,7 @@ def test_config_from_jax():
             backend=backend, block=1024, digit_bits=4, flush_rows=4)))
         assert rad == SortConfig(backend="radix")
         assert (rad.block, rad.digit_bits, rad.radix, rad.num_passes) == (
-            4096, 8, 256, 4)
+            RADIX_BLOCK, 8, 256, 4)
     with pytest.raises(NotImplementedError):
         config_from_jax(dataclasses.asdict(jvrs.SortConfig(adaptive=True)))
     with pytest.raises(TypeError):

@@ -6,9 +6,9 @@ a minute and a half, for its fully unrolled chunk and local kernels at
 every chunk size. Each source
 compiles to an object in its own nvcc process, all started together, and
 the objects link into one library in `_build/` beside this file, named by
-a hash of the sources and flags, so a changed source builds anew and an
-unchanged one loads at once. Nothing is built at import time: the CPU paths
-never need a compiler.
+a hash of the sources, their shared header and the flags, so a changed
+source builds anew and an unchanged one loads at once. Nothing is built
+at import time: the CPU paths never need a compiler.
 """
 
 from __future__ import annotations
@@ -24,7 +24,8 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("bitonic.cu", "radix.cu")
+SOURCES = ("bitonic.cu", "fused.cu", "radix.cu")
+HEADERS = ("network.cuh",)  # included by bitonic.cu and fused.cu
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
@@ -63,7 +64,7 @@ def nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]

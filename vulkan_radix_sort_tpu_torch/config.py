@@ -51,14 +51,22 @@ CHUNK_CARRY = MAX_SMEM_STABLE // 4            # 2^12
 # 256 digits.
 DIGIT_BITS = 8
 RADIX_DIGIT_BITS = (4, 8)
-# Keys per block of the radix kernels: the reference's PARTITION_SIZE.
-RADIX_BLOCK = 4096
-# Threads of a block-sort block (the reference's WORKGROUP_SIZE; kThreads
-# in csrc/radix.cu): a block is split into one contiguous segment per warp,
-# ranked 32 keys at a time, so it must be a multiple of this.
+# Keys per block of the radix kernels, by default the largest block
+# (MAX_RADIX_BLOCK below) rather than the reference's PARTITION_SIZE of
+# 4096: on an H100 a pass's block sort, spine and placement together are
+# faster there at 2^25 keys, as the placement's runs grow and the offset
+# table shrinks fourfold while the block sort slows by less; from 2^16 to
+# 2^22 keys no block size sorts measurably faster, since host launch time
+# bounds those sorts (`utils/block_sweep.py`, PERF.md).
+RADIX_BLOCK = 1 << 14
+# Most threads of a block-sort block (the reference's WORKGROUP_SIZE;
+# kThreads in csrc/radix.cu), and the smallest block: a block is split
+# into one contiguous segment per warp, held in registers and ranked 32
+# keys at a time, with 4 to 32 keys a thread
+# (`block_sort.sort_geometry`).
 RADIX_THREADS = 512
-# Largest block whose block-sort tile (keys in, keys out, 16-bit ranks,
-# per-warp digit counts) fits one thread block's shared memory.
+# Largest block whose keys and values in registers, and whose block-sort
+# tile (keys and values, per-warp digit counts), fit one thread block.
 MAX_RADIX_BLOCK = 1 << 14
 
 BACKENDS = ("auto", "network", "radix", "reference")

@@ -1,7 +1,7 @@
 """The bitonic network's kernels: a wrapper and a plain version for each.
 
-Each kernel of `csrc/bitonic.cu` replaces one Pallas kernel of
-`vulkan_radix_sort_tpu/ops/bitonic.py`:
+Each kernel of `csrc/bitonic.cu` (and `csrc/fused.cu`, K2) replaces one
+Pallas kernel of `vulkan_radix_sort_tpu/ops/bitonic.py`:
 
   chunk  (K1)  _run_chunk / _chunk_phases_body      bitonic.py:934, 513
   fused  (K2)  _run_fused_rounds / _fused_rounds_body  bitonic.py:723, 628
@@ -14,7 +14,7 @@ Every kernel works in place on the carry's flat uint32 buffers (1 to 3 of
 them, see `Mode`), over the first `nunits` grid units only; a unit whose
 `valid` flag (int32, one per unit) is 0 is left as it is. What bounds each
 kernel on an H100 and what its design does about it is noted in the CUDA
-source. The chunk and local kernels hold E elements per thread in
+source. The chunk, local and fused kernels hold E elements per thread in
 registers (`block_geometry`) and load them as 16-byte vectors, so their
 buffers must be 16-byte aligned (`check_aligned`).
 
@@ -43,7 +43,7 @@ import torch
 
 from .. import _build
 from ..config import MIN_CHUNK, smem_elems
-from .bitops import narrow_u32, widen_u32
+from .bitops import check_aligned, narrow_u32, widen_u32
 
 
 class Mode(NamedTuple):
@@ -74,37 +74,36 @@ MODES = (KEYS, PAIRS, STABLE)
 LOG_CROSS_W = 6
 CROSS_W = 1 << LOG_CROSS_W
 
-# The chunk and local kernels keep E elements per thread in registers
-# (net_threads and kNetThreads in csrc/bitonic.cu): 16 keys or 8 elements of
-# a two-word carry per thread, raised so a block has at most NET_THREADS
-# threads and lowered so it has at least one warp; a thread that would
-# hold REG_WORDS words or more (each carry's largest chunk) takes
-# WIDE_THREADS threads instead, which leaves it twice the registers.
+# The chunk, local and fused kernels keep E elements per thread in
+# registers (net_threads and kNetThreads in csrc/network.cuh): 16 keys or 8
+# elements of a two-word carry per thread, raised so a block has at most
+# NET_THREADS threads and lowered so it has at least one warp; a thread
+# that would hold REG_WORDS words or more (each carry's largest chunk)
+# takes WIDE_THREADS threads instead, which leaves it twice the registers.
+# A fused group of G elements has the geometry of a chunk of G, except
+# there (fused_threads in csrc/fused.cu): one such block fits an SM, so
+# it takes MAX_THREADS threads if a thread then holds at most half of
+# REG_WORDS words, else NET_THREADS.
 NET_THREADS = 512
 WIDE_THREADS = 256
+MAX_THREADS = 1024
 REG_WORDS = 64
 WARP = 32
-VECTOR_BYTES = 16  # their loads and stores are 16-byte vectors
+REG_KERNELS = ("chunk", "local", "local_gated", "fused")
 
 
 def block_geometry(kernel: str, mode: Mode, C: int) -> tuple[int, int]:
-    """(threads, elements per thread) of a chunk or local launch at C."""
-    if kernel not in ("chunk", "local", "local_gated"):
+    """(threads, elements per thread) of a chunk or local launch at C, or
+    of a fused launch on groups of C elements."""
+    if kernel not in REG_KERNELS:
         raise ValueError(f"{kernel} keeps its tile in shared memory")
     threads = min(max(C // (16 if mode.words == 1 else 8), WARP), NET_THREADS)
     if C // threads * mode.n_arrays >= REG_WORDS:
         threads = WIDE_THREADS
+        if kernel == "fused":
+            threads = (MAX_THREADS if C // MAX_THREADS * mode.n_arrays
+                       <= REG_WORDS // 2 else NET_THREADS)
     return threads, C // threads
-
-
-def check_aligned(arrs) -> None:
-    """Raise unless every buffer starts on a 16-byte boundary, as the
-    kernels' vector loads and stores need (a view such as x[1:] does
-    not)."""
-    for a in arrs:
-        if a.data_ptr() % VECTOR_BYTES:
-            raise ValueError(f"buffer at {a.data_ptr():#x} is not "
-                             f"{VECTOR_BYTES}-byte aligned")
 
 
 # Launches per kernel since the last reset; "gate" counts the launches of
@@ -289,7 +288,7 @@ def chunk(arrs, mode, C, nunits, valid=None):
 
 def fused(arrs, mode, C, r_lo, r_hi, ngroups, valid=None):
     """Merge rounds r_lo..r_hi on each of the first `ngroups` groups of
-    2^r_hi chunks, held whole in shared memory."""
+    2^r_hi chunks, each group held whole on one thread block."""
     run(spec("fused", C, r_lo, r_hi), arrs, mode, ngroups, valid)
 
 

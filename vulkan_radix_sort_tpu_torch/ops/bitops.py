@@ -85,6 +85,19 @@ def pad_u32(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return out
 
 
+VECTOR_BYTES = 16  # the kernels load and store 16-byte vectors
+
+
+def check_aligned(arrs) -> None:
+    """Raise unless every buffer starts on a 16-byte boundary, as the
+    kernels' vector loads and stores need (a view such as x[1:] does
+    not)."""
+    for a in arrs:
+        if a.data_ptr() % VECTOR_BYTES:
+            raise ValueError(f"buffer at {a.data_ptr():#x} is not "
+                             f"{VECTOR_BYTES}-byte aligned")
+
+
 def check_u32(*xs: torch.Tensor) -> None:
     """Raise unless every x is a 1-D uint32 tensor of one shape and device."""
     for x in xs:

@@ -11,7 +11,9 @@ Layout differs from the JAX package's only where the TPU forced it: keys
 and values are flat uint32 tensors, not (rows, 128) tiles, and the
 histogram is `(nblocks, radix)` int32, not `(nblocks, 128)` lane-padded
 rows. The kernel (`block_sort_kernel` in `csrc/radix.cu`) says what bounds
-it on an H100 and how it keeps the ranks stable.
+it on an H100 and how it keeps the ranks stable. It copies and stores the
+block as 16-byte vectors, so its buffers must be 16-byte aligned
+(`check_aligned`).
 
 `block_sort` runs the plain version when the keys lie on the CPU, and
 otherwise launches the kernel or raises; it counts each launch in
@@ -24,15 +26,24 @@ from __future__ import annotations
 import torch
 
 from .. import _build
-from ..config import SortConfig
-from .bitops import widen_u32
+from ..config import RADIX_THREADS, SortConfig
+from .bitops import check_aligned, widen_u32
 
 # Launches of the CUDA kernel since the last reset.
 launches = {"block_sort": 0}
 
+VECTOR_KEYS = 4  # keys in one 16-byte vector
+
 
 def reset_launches() -> None:
     launches["block_sort"] = 0
+
+
+def sort_geometry(block: int) -> tuple[int, int]:
+    """(threads, keys per thread) of a K7 block: one thread per 16-byte
+    vector up to RADIX_THREADS threads (sort_threads in csrc/radix.cu)."""
+    threads = min(block // VECTOR_KEYS, RADIX_THREADS)
+    return threads, block // threads
 
 
 def _check(keys, values, shift: int, config: SortConfig, key_value: bool):
@@ -83,6 +94,7 @@ def _launch(keys, values, shift: int, config: SortConfig, key_value: bool):
     hist = torch.empty((nblocks, config.radix), dtype=torch.int32,
                        device=dev)
     if nblocks:
+        check_aligned((keys, values) if key_value else (keys,))
         lib = _build.library()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
