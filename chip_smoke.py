@@ -11,11 +11,12 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      name every instantiation (INSTANTIATIONS);
   3. kernel vs plain: each kernel against its plain PyTorch version on the
      same seeded input, bitwise equal. The network's (chunk, fused, cross,
-     local, and the validity gate) in keys, pairs and stable carries, at
-     2^20 elements (with extra geometries: clipped grids, a round split
-     into several cross spans, the chunk and local kernels at every chunk
-     from 256 to the carry's cap, the fused kernel at every group from 512
-     to the cap) and at the main path's 2^25 shapes. The radix backend's
+     local, and the validity gate) in the keys, pairs and stable carries
+     and the 64-bit key carries w3 and w4_big, at 2^20 elements (with extra
+     geometries: clipped grids, a round split into several cross spans,
+     the chunk and local kernels at every chunk from 256 to the carry's
+     register cap, the fused kernel at every group from 512 to the cap)
+     and at the main path's 2^25 shapes. The radix backend's
      (block sort K7, placement K8) at 2^20 at every block from 512 to
      16384 and both digit widths, with uniform keys, few distinct digits
      and one key only, and at the main path's 2^25 shapes, keys and
@@ -26,9 +27,13 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      bitwise equal to a numpy oracle computed once for both; the kernels'
      launch counters are zeroed just before each backend's run and read
      just after, and every kernel of that backend must have launched (each
-     radix sort launches K7 and K8 exactly num_passes times);
+     radix sort launches K7 and K8 exactly num_passes times); then the
+     64-bit path (uint64, int64 and float64 keys) through the same entry
+     points at 2^25, its launches counted per carry: chunk, fused, cross,
+     local and the gate must launch in both w3 and w4_big;
   5. times on the card with CUDA events: end to end with torch.sort as the
-     yardstick, and per kernel with its bound and its plain version;
+     yardstick, and per kernel with its bound and its plain version; for
+     the 64-bit sorts per kernel and carry;
   6. slot merges: a slot buffer of 4 slots x 2^24 (slack-2 fill with the
      sizes of a uniform 4-rank exchange, one empty slot, one full slot,
      genuine 0xFFFFFFFF keys), keys and stable carries: every launch of
@@ -47,7 +52,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      buffers: the merge gated by the slot sizes, the same merge ungated,
      and the full network re-sort the fallback runs, keys and stable kv;
      and K6 per launch against the ungated local pass.
-Then the `kernels` JSON line, the card's name and power limit as
+Then the `kernels` JSON line (each network row with its 64-bit carries'
+figures under "w3" and "w4_big"), the card's name and power limit as
 nvidia-smi gives them, and last the {"ok": true, ...} result line.
 """
 
@@ -93,9 +99,11 @@ SLOTS, SLOT = 4, 1 << 24  # the slot buffer of 4 ranks x 2^25: slack 2
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # integer operations per compare-exchange. keys: one min and one max (the
-# direction only picks the slot each lands in). Two-word carries: one
-# compare per compared word and one select per word the pair writes.
-OPS_PER_CE = {"keys": 2, "pairs": 2 + 4, "stable": 2 + 6}
+# direction only picks the slot each lands in). Carries of two and three
+# words: one compare per compared word and one select per word the pair
+# writes.
+OPS_PER_CE = {"keys": 2, "pairs": 2 + 4, "stable": 2 + 6, "w3": 3 + 6,
+              "w4_big": 3 + 8}
 # integer operations per key of a radix kernel. Block sort: the digit (a
 # shift and a mask), its count, and the add of its rank to its digit's
 # base. Placement: the add of the run's offset and the subtraction of the
@@ -105,6 +113,7 @@ OPS_PER_KEY = {"block_sort": 4, "place": 2}
 BITONIC_CU = "vulkan_radix_sort_tpu_torch/csrc/bitonic.cu"
 FUSED_CU = "vulkan_radix_sort_tpu_torch/csrc/fused.cu"
 RADIX_CU = "vulkan_radix_sort_tpu_torch/csrc/radix.cu"
+W64_CU = "vulkan_radix_sort_tpu_torch/csrc/network_w64.cu"
 REGS = "redesigned: registers, warp shuffles, a transpose pair per phase"
 KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
     "chunk": ("K1 chunk", BITONIC_CU,
@@ -170,11 +179,12 @@ def launch_counts() -> dict[str, int]:
 
 # Instantiations each kernel template has in csrc/: the report must name
 # every one, so that the spill check covers them all. chunk and local: C
-# from 2^8 to the cap, 8 for keys and 7 for each two-word carry; fused: G
-# from 2^9 to the cap, 7 + 6 + 6; block sort: keys or kv, 4 to 32 keys a
+# from 2^8 to the register cap, 8 for keys, 7 for each two-word carry and
+# 6 for each three-word one; fused: G from 2^9 to the cap, 7 + 6 + 6 +
+# 5 + 5; cross: one per carry; block sort: keys or kv, 4 to 32 keys a
 # thread, 4- or 8-bit digits.
-INSTANTIATIONS = {"chunk_kernel": 22, "local_kernel": 22, "cross_kernel": 3,
-                  "fused_kernel": 19, "block_sort_kernel": 16,
+INSTANTIATIONS = {"chunk_kernel": 34, "local_kernel": 34, "cross_kernel": 5,
+                  "fused_kernel": 29, "block_sort_kernel": 16,
                   "place_kernel": 2}
 
 
@@ -211,20 +221,21 @@ def build() -> None:
 # -- phase 3: kernel vs plain ------------------------------------------------
 
 def _inputs(mode, n: int, gen, device) -> list[torch.Tensor]:
-    """Seeded buffers; two-word carries get few distinct keys, so the
-    second word decides. The stable carry's last eighth is tied (max key,
-    pad tiebreak) tuples with distinct riding values, as a count= tail
-    holds them: a kernel must leave each riding value where it is."""
-    lo, hi = (0, 13) if mode.words == 2 else (-(1 << 31), 1 << 31)
-    k = torch.randint(lo, hi, (n,), generator=gen, device=device,
-                      dtype=torch.int32)
-    rest = [torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
-                          device=device, dtype=torch.int32)
-            for _ in range(mode.n_arrays - 1)]
+    """Seeded buffers; every compared word but the last takes few distinct
+    values, so the next word decides. The stable carries' last eighth is
+    tied (max key, pad tiebreak) tuples with distinct riding values, as a
+    count= tail holds them: a kernel must leave each riding value where it
+    is."""
+    def rand(lo=-(1 << 31), hi=1 << 31):
+        return torch.randint(lo, hi, (n,), generator=gen, device=device,
+                             dtype=torch.int32)
+    arrs = [rand(0, 13) for _ in range(mode.words - 1)]
+    arrs += [rand() for _ in range(mode.ride + 1)]
     if mode.ride:
-        k[-n // 8:] = -1
-        rest[0][-n // 8:] = bitonic.STABLE_PAD_IDX
-    return [x.view(torch.uint32) for x in [k] + rest]
+        for a in arrs[:mode.words - 1]:
+            a[-n // 8:] = -1
+        arrs[mode.words - 1][-n // 8:] = bitonic.STABLE_PAD_IDX
+    return [x.view(torch.uint32) for x in arrs]
 
 
 def kernel_cases(mode, n: int, extra: bool):
@@ -232,9 +243,9 @@ def kernel_cases(mode, n: int, extra: bool):
     elements with the path's chunks; with `extra`, also clipped grids, a
     single-span earlier round, a round split into more than one span, the
     chunk and local kernels at every chunk from MIN_CHUNK to the carry's
-    shared-memory cap, and the fused kernel at every group from two
-    MIN_CHUNK chunks to the cap (groups of MIN_CHUNK chunks and of two
-    chunks, from round 1 and from the last round alone)."""
+    register cap, and the fused kernel at every group from two MIN_CHUNK
+    chunks to the cap (groups of MIN_CHUNK chunks and of two chunks, from
+    round 1 and from the last round alone)."""
     C = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
     r = bk.log2(n // C)
     r_hi = bitonic._fused_rounds(C, r, mode)
@@ -250,11 +261,11 @@ def kernel_cases(mode, n: int, extra: bool):
     cases += [("cross", (C, r, t_lo, s), n // (C << r)) for t_lo, s in spans]
     if extra:  # the register kernels' geometry changes with C and G
         C = MIN_CHUNK
-        while C <= mode.smem_cap:
+        while C <= mode.reg_cap:
             cases += [("chunk", (C,), n // C), ("local", (C, 1), n // C)]
             C *= 2
         G = 2 * MIN_CHUNK
-        while G <= mode.smem_cap:
+        while G <= mode.reg_cap:
             for C in sorted({MIN_CHUNK, G // 2}):
                 top = bk.log2(G // C)
                 cases += [("fused", (C, r_lo, top), n // G)
@@ -353,14 +364,16 @@ def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
     return err
 
 
-def check_kernels(sizes=((N_CHECK, True), (N, False)),
-                  device="cuda") -> dict[str, int]:
+def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
+                  by_mode: dict | None = None) -> dict[str, int]:
     """Each network kernel against its plain version on the same seeded
-    inputs, with and without a validity mask that has zeros: at 2^20 with
-    extra geometries, and at the main path's own shapes (2^25); then the
-    radix kernels (`check_radix_kernels`). Returns max |err| per kernel."""
+    inputs, with and without a validity mask that has zeros, in every
+    carry: at 2^20 with extra geometries, and at the main path's own
+    shapes (2^25); then the radix kernels (`check_radix_kernels`). Returns
+    max |err| per kernel; `by_mode` gets it per (kernel, carry) too."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     err = {name: 0 for name in NETWORK_KERNELS}
+    by_mode = {} if by_mode is None else by_mode
     for n, extra in sizes:
         for mode in bk.MODES:
             for kernel, args, units in kernel_cases(mode, n, extra):
@@ -379,6 +392,8 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)),
                     e = _max_abs_err(a, b)
                     key = "gate" if gated else kernel
                     err[key] = max(err[key], e)
+                    by_mode[key, mode.name] = max(
+                        by_mode.get((key, mode.name), 0), e)
                     geo = ""
                     if kernel in bk.REG_KERNELS:
                         th, per = bk.block_geometry(kernel, mode,
@@ -540,6 +555,161 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
             want("sort float32", lambda: np.sort(kf)), f"{tag}float32 keys")
 
 
+# the 64-bit path ------------------------------------------------------------
+
+SIGN64 = np.uint64(1 << 63)
+MAX64 = np.uint64(2**64 - 1)
+
+
+def encode64(k: np.ndarray) -> np.ndarray:
+    """numpy: the order-preserving uint64 encoding of uint64, int64 and
+    float64 keys (float64: IEEE total order, NaNs of either sign outside
+    the infinities), as the port's encoders compute it."""
+    b = k.view(np.uint64)
+    if k.dtype == np.int64:
+        return b ^ SIGN64
+    if k.dtype == np.float64:
+        return b ^ np.where(b >> np.uint64(63) == 1, MAX64, SIGN64)
+    return b
+
+
+def keys64(n: int, seed: int = SEED + 30) -> np.ndarray:
+    """Seeded uint64 keys: uniform, but a quarter with one high word (the
+    low word decides), a quarter drawn from 1000 keys (ties: the index or
+    the value decides), and every 97th the maximum 2^64 - 1."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 2**64, n, dtype=np.uint64)
+    k[::4] = (k[::4] & np.uint64(0xFFFFFFFF)) | np.uint64(0xDEADBEEF << 32)
+    k[1::4] = rng.choice(k[2:2002:2], k[1::4].size)
+    k[::97] = MAX64
+    return k
+
+
+def floats64(n: int, seed: int = SEED + 31) -> np.ndarray:
+    k = np.random.default_rng(seed).standard_normal(n)
+    k[:6] = [0.0, -0.0, np.inf, -np.inf, np.nan, np.copysign(np.nan, -1)]
+    k[6::1001] = -0.0
+    return k
+
+
+def _expect64(got: torch.Tensor, want: np.ndarray, what: str) -> None:
+    """Bitwise: 64-bit keys through their uint64 bit patterns."""
+    g = got.cpu().numpy()
+    if g.shape != want.shape or not np.array_equal(g.view(np.uint64),
+                                                   want.view(np.uint64)):
+        raise AssertionError(f"{what}: differs from the numpy oracle")
+    log(f"[main] {what}: ok")
+
+
+def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
+                oracles: dict | None = None) -> None:
+    """64-bit keys through the port's entry points at full size, each
+    result against a numpy oracle (the sort of the encoded words): uint64
+    keys-only (the (k, v) carry on (hi, lo)), stable key-value (w4_big)
+    and non-stable (w3: equal keys by ascending value), a ragged n,
+    count= as a device tensor on keys and both key-value modes, and int64
+    and float64 keys."""
+    oracles = {} if oracles is None else oracles
+
+    def want(key, fn):
+        if key not in oracles:
+            oracles[key] = fn()
+        return oracles[key]
+
+    keys = want("keys64", lambda: keys64(n))
+    vals = want("vals", lambda: datagen.generate_values(n, seed=SEED + 1))
+    dk, dv = to_dev(keys, device), to_dev(vals, device)
+    sorter = vrs.Sorter(n, key_dtype=torch.uint64, device=device)
+
+    _expect64(vrs.sort(dk), want("sort64", lambda: np.sort(keys)),
+              "u64 keys")
+    o = want("stable64", lambda: np.argsort(keys, kind="stable"))
+    gk, gv = sorter.sort_key_value(dk, dv)
+    _expect64(gk, keys[o], "u64 stable kv, keys")
+    _expect(gv, vals[o], "u64 stable kv, values")
+    o = want("pairs64", lambda: np.lexsort((vals, keys)))
+    gk, gv = vrs.sort_key_value(dk, dv, stable=False)
+    _expect64(gk, keys[o], "u64 non-stable kv, keys")
+    _expect(gv, vals[o], "u64 non-stable kv, values")
+
+    m = n_ragged
+    _expect64(sorter.sort(dk[:m]), np.sort(keys[:m]), "u64 keys ragged")
+    o = np.argsort(keys[:m], kind="stable")
+    gk, gv = sorter.sort_key_value(dk[:m], dv[:m])
+    _expect64(gk, keys[:m][o], "u64 stable kv ragged, keys")
+    _expect(gv, vals[:m][o], "u64 stable kv ragged, values")
+
+    count = n - n // 11 - 12345
+    cnt = torch.tensor(count, device=device)
+    pk = keys[:count]
+    _expect64(sorter.sort(dk, count=cnt),
+              np.concatenate([np.sort(pk), keys[count:]]), "u64 keys count=")
+    for stable in (True, False):
+        what = f"u64 {'stable' if stable else 'non-stable'} kv count="
+        o = (np.argsort(pk, kind="stable") if stable
+             else np.lexsort((vals[:count], pk)))
+        gk, gv = sorter.sort_key_value(dk, dv, count=cnt, stable=stable)
+        _expect64(gk, np.concatenate([pk[o], keys[count:]]), f"{what}, keys")
+        _expect(gv, np.concatenate([vals[:count][o], vals[count:]]),
+                f"{what}, values")
+    del dk, dv, gk, gv
+
+    ki = keys.view(np.int64)
+    _expect64(vrs.sort(to_dev(ki, device)), np.sort(ki), "int64 keys")
+    kf = floats64(n)
+    uf = encode64(kf)
+    got = vrs.sort(to_dev(kf, device)).cpu().numpy()
+    _expect64(torch.from_numpy(encode64(got)), np.sort(uf),
+              "float64 keys (IEEE total order)")
+    o = np.argsort(uf, kind="stable")
+    gk, gv = vrs.sort_key_value(to_dev(kf, device), to_dev(vals, device))
+    _expect64(gk, kf[o], "float64 stable kv, keys")
+    _expect(gv, vals[o], "float64 stable kv, values")
+
+
+class CarryLog:
+    """Launches per carry and kernel counter: wraps the network wrappers'
+    launch function and attributes each rise of their counters to the
+    launch's carry (the counters rise only where a kernel launches)."""
+
+    def __enter__(self):
+        self.counts = {}
+        self._real = real = bk._launch
+
+        def logged(launch, arrs, mode, nunits, valid):
+            before = dict(bk.launches)
+            real(launch, arrs, mode, nunits, valid)
+            c = self.counts.setdefault(mode.name, dict.fromkeys(bk.launches,
+                                                                0))
+            for k, v in bk.launches.items():
+                c[k] += v - before[k]
+        bk._launch = logged
+        return self
+
+    def __exit__(self, *exc):
+        bk._launch = self._real
+
+
+W64_CARRIES = ("w3", "w4_big")
+W64_KERNELS = ("chunk", "fused", "cross", "local", "gate")
+
+
+def _path_launches64(oracles) -> dict:
+    """Drive the 64-bit path with the counters zeroed just before and read
+    just after; each of K1-K5 must have launched in both w3 and w4_big.
+    Returns the launches per carry and kernel."""
+    reset_launches()
+    with CarryLog() as carries:
+        main_path64(oracles=oracles)
+        torch.cuda.synchronize()
+    log("[launches] w64", json.dumps(carries.counts))
+    missing = [(c, k) for c in W64_CARRIES for k in W64_KERNELS
+               if carries.counts.get(c, {}).get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"not launched on the 64-bit path: {missing}")
+    return carries.counts
+
+
 # -- phase 5: times ----------------------------------------------------------
 
 class KernelTimer:
@@ -673,9 +843,10 @@ def library_ms(rec) -> float:
     launch computes, at its shapes: a sort along dim 1 of the live
     units as rows of `unit` elements, on seeded int32 keys (the
     sign-flipped view of uint32 keys: same order, same bytes). The stable
-    carry adds stable=True and the gather of the values; the pairs carry
-    sorts (k << 32 | v) as one int64. A yardstick only: the port never
-    calls it."""
+    carries add stable=True and the gather of the values (w4_big sorts
+    int64 keys, its (hi, lo) words as one); the pairs carry sorts
+    (k << 32 | v) as one int64. None for w3: no single call sorts
+    (hi, lo, v). A yardstick only: the port never calls it."""
     launch, mode, valid = rec["launch"], rec["mode"], rec["valid"]
     units = rec["nunits"] if valid is None else int(
         valid[:rec["nunits"]].sum())
@@ -686,8 +857,11 @@ def library_ms(rec) -> float:
         info = torch.iinfo(dtype)
         return torch.randint(info.min, info.max, shape, generator=gen,
                              device="cuda", dtype=dtype)
-    if mode is bk.STABLE:
-        k, v = rand(torch.int32), rand(torch.int32)
+    if mode is bk.W3:
+        return None
+    if mode.ride:
+        k = rand(torch.int32 if mode is bk.STABLE else torch.int64)
+        v = rand(torch.int32)
 
         def fn():
             sk, perm = torch.sort(k, dim=1, stable=True)
@@ -723,31 +897,57 @@ def path_sorts(n: int = N):
     return sorts, keys, vals
 
 
-def e2e_times(sorts, keys, vals, card: str) -> dict:
+def path_sorts64(n: int = N):
+    """The 64-bit path's sorts at n on uniform uint64 keys, as closures
+    for timing: keys, stable and non-stable kv, each also with count=."""
+    rng = np.random.default_rng(SEED + 32)
+    keys = to_dev(rng.integers(0, 2**64, n, dtype=np.uint64), "cuda")
+    vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
+    sorter = vrs.Sorter(n, key_dtype=torch.uint64)
+    cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
+    sorts = {
+        "u64_keys": lambda: sorter.sort(keys),
+        "u64_stable_kv": lambda: sorter.sort_key_value(keys, vals),
+        "u64_nonstable_kv": lambda: sorter.sort_key_value(keys, vals,
+                                                          stable=False),
+        "u64_keys_count": lambda: sorter.sort(keys, count=cnt),
+        "u64_stable_kv_count": lambda: sorter.sort_key_value(keys, vals,
+                                                             count=cnt),
+        "u64_nonstable_kv_count": lambda: sorter.sort_key_value(
+            keys, vals, count=cnt, stable=False),
+    }
+    return sorts, keys, vals
+
+
+def e2e_times(sorts, keys, vals, card: str, lib: str = "library") -> dict:
     e2e = {"card": card, "n": N}
     for name, fn in sorts.items():
         s = time_fn(fn, iters=10, repeats=5)
         e2e[f"{name}_ms"] = s * 1e3
         e2e[f"{name}_gitems_per_s"] = N / s / 1e9
     # Yardsticks only: the port never calls torch.sort on its kernel
-    # paths. torch.sort has no CUDA kernel for uint32, so it sorts the
-    # int32 bit patterns with the sign bit flipped (same order, same bytes).
-    flipped = keys.view(torch.int32) ^ -(1 << 31)
+    # paths. torch.sort has no CUDA kernel for uint32 (or uint64), so it
+    # sorts the int32 (int64) bit patterns with the sign bit flipped (same
+    # order, same bytes).
+    bits = 8 * keys.element_size()
+    signed = torch.int32 if bits == 32 else torch.int64
+    flipped = keys.view(signed) ^ -(1 << (bits - 1))
     v32 = vals.view(torch.int32)
-    e2e["library_keys_ms"] = time_fn(lambda: torch.sort(flipped)) * 1e3
+    e2e[f"{lib}_keys_ms"] = time_fn(lambda: torch.sort(flipped)) * 1e3
 
     def lib_kv():
         sk, perm = torch.sort(flipped, stable=True)
         return sk, v32[perm]
-    e2e["library_stable_kv_ms"] = time_fn(lib_kv) * 1e3
+    e2e[f"{lib}_stable_kv_ms"] = time_fn(lib_kv) * 1e3
     log("[e2e]", json.dumps(e2e))
     return e2e
 
 
-def kernel_times(sorts) -> tuple[dict, list]:
+def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
     """Per kernel over TIMED_RUNS runs of the path's sorts: launch time,
     bound and, for one run, the plain version's time at the same shapes.
-    Returns the sums per kernel and every launch's record."""
+    Returns the sums per kernel (per (kernel, carry) with `by_mode`) and
+    every launch's record."""
     for fn in sorts.values():  # warm
         fn()
     torch.cuda.synchronize()
@@ -764,7 +964,7 @@ def kernel_times(sorts) -> tuple[dict, list]:
     def acc():
         return dict(n=0, ms=0.0, bound=0.0, by={}, plain=0.0, nplain=0,
                     lib=0.0, nlib=0)
-    per = {k: acc() for k in KERNELS}
+    per = {} if by_mode else {k: acc() for k in KERNELS}
     by_tag = {}
     one_run = len(timer.records) // TIMED_RUNS
     for i, rec in enumerate(timer.records):
@@ -773,8 +973,10 @@ def kernel_times(sorts) -> tuple[dict, list]:
         pm = plain_ms(rec) if i < one_run else None
         lm = (library_ms(rec) if i < one_run
               and rec["names"][0] in LIBRARY_KERNELS else None)
+        carry = rec["mode"].name if "mode" in rec else ""
         for k in rec["names"]:
-            for a in (per[k], by_tag.setdefault((rec["tag"], k), acc())):
+            for a in (per.setdefault((k, carry) if by_mode else k, acc()),
+                      by_tag.setdefault((rec["tag"], k, carry), acc())):
                 a["n"] += 1
                 a["ms"] += ms
                 a["bound"] += b
@@ -785,10 +987,11 @@ def kernel_times(sorts) -> tuple[dict, list]:
                 if lm is not None and k in LIBRARY_KERNELS:
                     a["lib"] += lm
                     a["nlib"] += 1
-    for (tag, k), a in by_tag.items():
+    for (tag, k, carry), a in by_tag.items():
         lib = (f" library_ms/launch={a['lib'] / a['nlib']:.4f}"
                if a["nlib"] else "")
-        log(f"[kernel-time] {tag} {k}: launches/sort={per_sort[tag][k]} "
+        label = f"{tag} {carry}" if by_mode else tag
+        log(f"[kernel-time] {label} {k}: launches/sort={per_sort[tag][k]} "
             f"ms/launch={a['ms'] / a['n']:.4f} "
             f"bound_ms/launch={a['bound'] / a['n']:.4f} "
             f"({max(a['by'], key=a['by'].get)}) "
@@ -1180,35 +1383,48 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     build()
-    err = check_kernels()
+    err_carry = {}
+    err = check_kernels(by_mode=err_carry)
 
     oracles = {}
     launches = _path_launches(None, NETWORK_KERNELS, oracles)
     launches.update(_path_launches(RADIX, RADIX_KERNELS, oracles))
+    carries = _path_launches64(oracles)
     del oracles
 
     sorts, keys, vals = path_sorts()
     e2e_times(sorts, keys, vals, card)
     per, _ = kernel_times(sorts)
+    sorts, keys, vals = path_sorts64()
+    e2e_times(sorts, keys, vals, card, lib="library_u64")
+    per64, _ = kernel_times(sorts, by_mode=True)
     del sorts, keys, vals
 
     err["local_gated"] = check_slot_merges()
     dist_launches, slot_bufs = dist_phase()
     launches["local_gated"] = dist_launches["local_gated"]
     per["local_gated"] = merge_times(slot_bufs, card)["local_gated"]
+
+    def figures(p):
+        return {"ms": p["ms"] / p["n"], "plain_ms": p["plain"] / p["nplain"],
+                "bound_ms": p["bound"] / p["n"],
+                "bound_by": max(p["by"], key=p["by"].get),
+                "library_ms": p["lib"] / p["nlib"] if p["nlib"] else None}
+
     rows = []
     for key, (label, source, replaces, status) in KERNELS.items():
-        p = per[key]
-        rows.append({
-            "name": label, "route": "cuda", "source": source,
-            "replaces": replaces, "status": status,
-            "launches": launches[key],
-            "max_abs_err": err[key], "ms": p["ms"] / p["n"],
-            "plain_ms": p["plain"] / p["nplain"],
-            "bound_ms": p["bound"] / p["n"],
-            "bound_by": max(p["by"], key=p["by"].get),
-            "library_ms": p["lib"] / p["nlib"] if p["nlib"] else None,
-        })
+        row = {"name": label, "route": "cuda", "source": source,
+               "replaces": replaces, "status": status,
+               "launches": launches[key], "max_abs_err": err[key],
+               **figures(per[key])}
+        # the 64-bit carries: launches on the 64-bit path, times over its
+        # sorts (path_sorts64)
+        for c in W64_CARRIES:
+            row[c] = ({"source": W64_CU, "launches": carries[c][key],
+                       "max_abs_err": err_carry[key, c],
+                       **figures(per64[key, c])}
+                      if key in W64_KERNELS else None)
+        rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

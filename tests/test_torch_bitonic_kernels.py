@@ -6,8 +6,10 @@ in interpret mode, as `tests/test_bitonic.py` does. Same numpy-seeded
 inputs, same chunk size C; tolerance: bitwise equality (all data is
 integer). In the stable carry only keys and values are compared: the
 tiebreak word's encoding differs (plain index here, packed idx<<7|origin
-in the JAX package). The CUDA kernels themselves are held against their
-plain versions on the card in `test_torch_cuda.py` and `chip_smoke.py`.
+in the JAX package). The 64-bit key carries W3 (hi, lo, v) and W4_BIG
+(hi, lo, idx, v) encode every word alike on both sides, so every array is
+compared. The CUDA kernels themselves are held against their plain
+versions on the card in `test_torch_cuda.py` and `chip_smoke.py`.
 """
 
 import numpy as np
@@ -29,6 +31,8 @@ MODES = {
     "keys": (bk.KEYS, jbit.MODE_KEYS),
     "pairs": (bk.PAIRS, jbit.MODE_PAIRS),
     "stable": (bk.STABLE, jbit.MODE_PACKED),
+    "w3": (bk.W3, jbit.MODE_W3),
+    "w4_big": (bk.W4_BIG, jbit.MODE_W4_BIG),
 }
 
 
@@ -41,6 +45,18 @@ def _data(mode_name: str, seed: int):
         k %= np.uint32(7)
         k[::11] = 0xFFFFFFFF
     idx = np.arange(NP2, dtype=np.uint32)
+    if mode_name in ("w3", "w4_big"):  # few (hi, lo): the third word decides
+        lo = rng.integers(0, 3, NP2).astype(np.uint32)
+        lo[::13] = 0xFFFFFFFF
+        third = v if mode_name == "w3" else idx
+        if mode_name == "w4_big":  # a tail of tied (max, max, pad) tuples
+            k, lo, third = k.copy(), lo.copy(), third.copy()
+            k[-NP2 // 8:] = lo[-NP2 // 8:] = 0xFFFFFFFF
+            third[-NP2 // 8:] = tbit.STABLE_PAD_IDX
+        arrs = [k, lo, third] + ([v] if mode_name == "w4_big" else [])
+        return ([torch.from_numpy(a.copy()) for a in arrs],
+                [jnp.asarray(a.reshape(-1, LANES)) for a in arrs],
+                list(range(len(arrs))))
     port = {"keys": [k], "pairs": [k, v], "stable": [k, idx, v]}[mode_name]
     jax_ = {"keys": [k], "pairs": [k, v],
             "stable": [k, idx << np.uint32(7), v]}[mode_name]
@@ -76,7 +92,7 @@ UNIT = {"chunk": C, "fused": 2 * C, "cross": 2 * C, "local": C}  # per flag
 
 @pytest.mark.parametrize("variant", ["full", "clip", "gate"])
 @pytest.mark.parametrize("kernel", ["chunk", "fused", "cross", "local"])
-@pytest.mark.parametrize("mode_name", ["keys", "pairs", "stable"])
+@pytest.mark.parametrize("mode_name", list(MODES))
 def test_kernel_matches_jax(mode_name, kernel, variant):
     """K1-K4 (and K5 in the gate variant) bitwise equal to the Pallas
     kernels: full grid, a grid clipped to the genuine prefix (real_rows),
@@ -106,7 +122,7 @@ def test_kernel_matches_jax(mode_name, kernel, variant):
 
 @pytest.mark.parametrize("variant", ["full", "gate"])
 @pytest.mark.parametrize("kernel", ["chunk", "local"])
-@pytest.mark.parametrize("mode_name", ["keys", "pairs", "stable"])
+@pytest.mark.parametrize("mode_name", list(MODES))
 def test_min_chunk_matches_jax(mode_name, kernel, variant):
     """K1 and K4 at the smallest chunk (256, where a block of the register
     kernels is one warp) bitwise equal to the Pallas kernels, without and
@@ -137,28 +153,31 @@ def test_min_chunk_matches_jax(mode_name, kernel, variant):
                                     "fused"])
 @pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
 def test_register_kernel_geometry(mode, kernel):
-    """Every chunk the config admits (MIN_CHUNK to the carry's cap), and
-    every fused group (two MIN_CHUNK chunks to the cap), gives a block of
+    """Every chunk the config admits (MIN_CHUNK to the carry's register
+    cap), and every fused group (two MIN_CHUNK chunks to the cap), gives a
+    block of
     one warp to 1024 threads that holds it exactly, with a whole number of
     16-byte vectors per thread and array, and every merge stage reachable
     by registers, lanes, or layout B's registers and lanes (csrc/bitonic.cu,
     Regs: log2 of the elements at most 2 log2 E + 10)."""
     fused = kernel == "fused"
     c = 2 * MIN_CHUNK if fused else MIN_CHUNK
-    while c <= mode.smem_cap:
+    while c <= mode.reg_cap:
         threads, per = bk.block_geometry(kernel, mode, c)
         assert 32 <= threads <= 1024 and threads & (threads - 1) == 0
         assert threads * per == c and per % 4 == 0
         assert bk.log2(c) <= 2 * bk.log2(per) + 10
         c *= 2
     chunk = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
-    if fused:  # the main path's group of four chunks, the carry's cap
-        assert bk.block_geometry(kernel, mode, 4 * chunk) == {
-            "keys": (1024, 32), "pairs": (1024, 16),
-            "stable": (512, 32)}[mode.name]
+    if fused:  # the main path's group: four chunks, two for the 64-bit
+        group = chunk << tbit._fused_rounds(chunk, 10, mode)  # carries
+        assert group == mode.reg_cap
+        assert bk.block_geometry(kernel, mode, group) == {
+            "keys": (1024, 32), "pairs": (1024, 16), "stable": (512, 32),
+            "w3": (512, 16), "w4_big": (1024, 8)}[mode.name]
     else:
-        assert bk.block_geometry(kernel, mode, chunk) == (512, 16 //
-                                                         mode.words)
+        assert bk.block_geometry(kernel, mode, chunk) == (
+            512, 16 if mode.words == 1 else 8)
 
 
 def test_register_kernel_geometry_refuses_tile_kernels():
@@ -177,7 +196,7 @@ def test_unaligned_buffer_is_refused():
             bk.check_aligned([k, k[off:]])
 
 
-@pytest.mark.parametrize("mode_name", ["keys", "stable"])
+@pytest.mark.parametrize("mode_name", ["keys", "stable", "w3"])
 def test_fused_two_rounds_matches_jax(mode_name):
     """K2 over rounds 1..2: one group of 4 chunks holds the whole input."""
     mode, jmode = MODES[mode_name]
@@ -189,7 +208,7 @@ def test_fused_two_rounds_matches_jax(mode_name):
                                       np.asarray(out[i]).reshape(-1))
 
 
-@pytest.mark.parametrize("mode_name", ["keys", "pairs", "stable"])
+@pytest.mark.parametrize("mode_name", list(MODES))
 def test_fused_from_round_two_matches_jax(mode_name):
     """K2 over round 2 alone (r_lo = r_hi = 2: its one phase enters at
     depth log2 C + 1 and ends on the group's parity), bitwise equal to the
@@ -204,7 +223,7 @@ def test_fused_from_round_two_matches_jax(mode_name):
 
 
 @pytest.mark.parametrize("spans", [[(1, 1), (0, 1)], [(0, 2)]])
-@pytest.mark.parametrize("mode_name", ["keys", "pairs"])
+@pytest.mark.parametrize("mode_name", ["keys", "pairs", "w4_big"])
 def test_cross_spans_match_jax(mode_name, spans):
     """Round 2's two cross stages, as one span or as two launches, equal
     the JAX cross kernel's single pass."""
@@ -256,6 +275,14 @@ def test_wrapper_rejects_bad_buffers():
     with pytest.raises(ValueError):  # stable tile over the smem cap
         big = torch.zeros(1 << 15, dtype=torch.int32).view(torch.uint32)
         bk.chunk([big, big.clone(), big.clone()], bk.STABLE, 1 << 15, 1)
+    w = torch.zeros(1 << 14, dtype=torch.int32).view(torch.uint32)
+    with pytest.raises(ValueError):  # a W4_BIG chunk over its 2^13 cap
+        bk.chunk([w.clone() for _ in range(4)], bk.W4_BIG, 1 << 14, 1)
+    with pytest.raises(ValueError, match="register"):  # W3: registers
+        bk.fused([w.clone() for _ in range(3)], bk.W3, 1 << 13, 1, 1, 1)
+    with pytest.raises(ValueError, match="register"):
+        tbit.sort_pairs_w64(w, w, w, chunk=1 << 14, stable=False)
+    bk.cross([w.clone() for _ in range(3)], bk.W3, 1 << 13, 1, 0, 1, 1)
     with pytest.raises(ValueError):  # valid must be int32
         bk.chunk([k], bk.KEYS, C, 1, torch.ones(4, dtype=torch.int64))
     with pytest.raises(ValueError):
@@ -269,6 +296,11 @@ def test_smem_caps():
     assert bk.KEYS.smem_cap == 1 << 15
     assert bk.PAIRS.smem_cap == 1 << 14
     assert bk.STABLE.smem_cap == 1 << 14
+    assert bk.W3.smem_cap == 1 << 14
+    assert bk.W4_BIG.smem_cap == 1 << 13
+    # chunks and fused groups: W3 stops below its shared-memory cap
+    assert [m.reg_cap for m in bk.MODES] == [1 << 15, 1 << 14, 1 << 14,
+                                             1 << 13, 1 << 13]
     for mode in bk.MODES:
         for r in range(1, 20):
             spans = tbit._cross_spans(r, mode)

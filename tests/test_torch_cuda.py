@@ -46,14 +46,15 @@ def _u32(n, seed, mod=None):
 @pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
 def test_cuda_kernels_match_plain(cuda_device, mode):
     """Each CUDA kernel bitwise equal to its plain version on the card,
-    with and without a validity mask, including a two-span cross round."""
+    with and without a validity mask, including a two-span cross round;
+    the fused group is the main path's, sized by the carry's cap."""
     rng = np.random.default_rng(9)
     n = 1 << 18
     C = CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY
     r = bk.log2(n // C)
     cases = [bk.spec("chunk", C), bk.spec("local", C, r),
-             bk.spec("fused", C, 1, 2), bk.spec("cross", C, r, 0, r),
-             bk.spec("cross", C, r, 1, r - 1)]
+             bk.spec("fused", C, 1, tbit._fused_rounds(C, r, mode)),
+             bk.spec("cross", C, r, 0, r), bk.spec("cross", C, r, 1, r - 1)]
     for launch in cases:
         units = n // launch.unit
         flags = torch.from_numpy(rng.integers(0, 2, units).astype(np.int32))
@@ -68,12 +69,21 @@ def test_cuda_kernels_match_plain(cuda_device, mode):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _tie_tail(arrs, mode, start):
+    """Tied (max key, pad tiebreak) tuples from `start` on, riding values
+    distinct, as a count= tail or the padding holds them in a stable
+    carry."""
+    for a in arrs[:mode.words - 1]:
+        a.view(torch.int32)[start:] = -1
+    arrs[mode.words - 1].view(torch.int32)[start:] = tbit.STABLE_PAD_IDX
+
+
 def _chunk_cases():
     """(mode, C) for every chunk the config admits in every carry."""
     cases = []
     for mode in bk.MODES:
         c = MIN_CHUNK
-        while c <= mode.smem_cap:
+        while c <= mode.reg_cap:
             cases.append(pytest.param(mode, c, id=f"{mode.name}-{c}"))
             c *= 2
     return cases
@@ -84,7 +94,7 @@ def _chunk_cases():
 def test_cuda_register_kernels_every_chunk(cuda_device, mode, C):
     """K1 and K4 bitwise equal to their plain versions at every chunk, whose
     register and thread geometry changes with C, with and without a
-    validity mask; the stable carry's riding values under tied tuples stay
+    validity mask; the stable carries' riding values under tied tuples stay
     put."""
     rng = np.random.default_rng(C + mode.code)
     n = 1 << 18
@@ -94,9 +104,8 @@ def test_cuda_register_kernels_every_chunk(cuda_device, mode, C):
         for valid in (None, flags.to(cuda_device)):
             a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
                  .to(cuda_device) for _ in range(mode.n_arrays)]
-            if mode is bk.STABLE:  # a tail of tied (max, pad) tuples
-                a[0].view(torch.int32)[n // 2:] = -1
-                a[1].view(torch.int32)[n // 2:] = 0x7FFFFFFF
+            if mode.ride:  # a tail of tied (max, ..., pad) tuples
+                _tie_tail(a, mode, n // 2)
             b = [x.clone() for x in a]
             bk.run(launch, a, mode, units, valid)
             bk.run_plain(launch, b, mode, units, valid)
@@ -107,11 +116,11 @@ def test_cuda_register_kernels_every_chunk(cuda_device, mode, C):
 
 def _fused_cases():
     """(mode, G) for every group the fused kernel takes: two MIN_CHUNK
-    chunks up to the carry's cap."""
+    chunks up to the carry's register cap."""
     cases = []
     for mode in bk.MODES:
         g = 2 * MIN_CHUNK
-        while g <= mode.smem_cap:
+        while g <= mode.reg_cap:
             cases.append(pytest.param(mode, g, id=f"{mode.name}-{g}"))
             g *= 2
     return cases
@@ -123,7 +132,7 @@ def test_cuda_fused_every_group(cuda_device, mode, G):
     """K2 bitwise equal to its plain version at every group size, whose
     register and thread geometry changes with G: groups of 256-chunks and
     of two chunks, from round 1 and from the last round alone, with and
-    without a validity mask, the stable carry's riding values under tied
+    without a validity mask, the stable carries' riding values under tied
     tuples staying put."""
     rng = np.random.default_rng(G + mode.code)
     n = 1 << 18
@@ -138,9 +147,8 @@ def test_cuda_fused_every_group(cuda_device, mode, G):
         for valid in (None, flags.to(cuda_device)):
             a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
                  .to(cuda_device) for _ in range(mode.n_arrays)]
-            if mode is bk.STABLE:  # a tail of tied (max, pad) tuples
-                a[0].view(torch.int32)[n // 2:] = -1
-                a[1].view(torch.int32)[n // 2:] = 0x7FFFFFFF
+            if mode.ride:  # a tail of tied (max, ..., pad) tuples
+                _tie_tail(a, mode, n // 2)
             b = [x.clone() for x in a]
             bk.run(launch, a, mode, units, valid)
             bk.run_plain(launch, b, mode, units, valid)
@@ -402,3 +410,63 @@ def test_cuda_sort_sharded_single_rank(cuda_device, backend, tmp_path):
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
     np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+
+
+def _keys64(n, seed):
+    """uint64 keys with few distinct high words, genuine maximum keys."""
+    rng = np.random.default_rng(seed)
+    k = rng.integers(0, 2**64, n, dtype=np.uint64)
+    k[::3] = (k[::3] & np.uint64(0xFFFFFFFF)) | np.uint64(0xDEADBEEF << 32)
+    k[::101] = np.uint64(2**64 - 1)
+    return k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint64, torch.int64, torch.float64],
+                         ids=str)
+def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
+    """64-bit keys through the Sorter on the card at 2^18 + 5: keys, stable
+    and non-stable key-value, count= on the device; launches in both
+    three-word carries. Oracles sort the encoded words (float64: IEEE total
+    order, so -0.0 < 0.0)."""
+    n = (1 << 18) + 5
+    u = _keys64(n, 21)
+    if dtype == torch.float64:
+        k = np.random.default_rng(22).standard_normal(n)
+        k[:4] = [0.0, -0.0, np.inf, -np.inf]
+        b = k.view(np.uint64)
+        u = b ^ np.where(b >> np.uint64(63) == 1, np.uint64(2**64 - 1),
+                         np.uint64(1 << 63))
+    else:
+        k = u.view(np.int64) if dtype == torch.int64 else u
+        u = u ^ np.uint64(1 << 63) if dtype == torch.int64 else u
+    v = datagen.generate_values(n, seed=23)
+    s = vrs.Sorter(n, key_dtype=dtype)
+    dk = torch.from_numpy(k).to(cuda_device)
+    dv = torch.from_numpy(v).to(cuda_device)
+    got = s.sort(dk).cpu().numpy().view(np.uint64)
+    np.testing.assert_array_equal(got, k[np.argsort(u, kind="stable")]
+                                  .view(np.uint64))
+    bk.reset_launches()
+    for stable in (True, False):
+        order = (np.argsort(u, kind="stable") if stable
+                 else np.lexsort((v, u)))
+        gk, gv = s.sort_key_value(dk, dv, stable=stable)
+        np.testing.assert_array_equal(gk.cpu().numpy().view(np.uint64),
+                                      k[order].view(np.uint64))
+        np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
+        m = n - 999
+        cnt = torch.tensor(m, device=cuda_device)
+        order = (np.argsort(u[:m], kind="stable") if stable
+                 else np.lexsort((v[:m], u[:m])))
+        gk, gv = s.sort_key_value(dk, dv, count=cnt, stable=stable)
+        np.testing.assert_array_equal(gk.cpu().numpy()[:m].view(np.uint64),
+                                      k[:m][order].view(np.uint64))
+        np.testing.assert_array_equal(gv.cpu().numpy()[:m], v[:m][order])
+        np.testing.assert_array_equal(gv.cpu().numpy()[m:], v[m:])
+    assert all(bk.launches[k] > 0 for k in ("chunk", "fused", "cross",
+                                            "local", "gate"))
+    got = s.sort(dk, count=torch.tensor(n - 7, device=cuda_device))
+    np.testing.assert_array_equal(
+        got.cpu().numpy()[:n - 7].view(np.uint64),
+        k[:n - 7][np.argsort(u[:n - 7], kind="stable")].view(np.uint64))

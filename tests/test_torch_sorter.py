@@ -201,8 +201,12 @@ def test_refusals():
     with pytest.raises(ValueError):
         SortConfig(chunk=300)
     for dt in (torch.uint64, torch.int64, torch.float64):
-        with pytest.raises(NotImplementedError):
-            vrs.Sorter(16, key_dtype=dt, device="cpu")
+        # 64-bit keys sort on the network and the reference backend only
+        with pytest.raises(NotImplementedError, match="radix"):
+            vrs.Sorter(16, key_dtype=dt, device="cpu",
+                       config=SortConfig(backend="radix"))
+    with pytest.raises(ValueError):
+        vrs.Sorter(16, key_dtype=torch.int16, device="cpu")
     s = vrs.Sorter(16, device="cpu")
     keys = torch.zeros(8, dtype=torch.int32).view(torch.uint32)
     with pytest.raises(NotImplementedError):
@@ -288,7 +292,7 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase)
     and main-path phases, rehearsed at a small size on the CPU (plain
     versions): the network through 'auto', then the radix backend, against
-    one set of oracles."""
+    one set of oracles; then the 64-bit path."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -308,3 +312,4 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     shared = len(oracles)
     cs.main_path(config=cs.RADIX, **kw)
     assert len(oracles) == shared  # the radix run computes no new oracle
+    cs.main_path64(n=1 << 15, n_ragged=(1 << 14) + 4096, device="cpu")

@@ -10,7 +10,10 @@ reference backend completes the set. It sorts uint32, int32 and float32
 keys, key-value pairs (stable, or on the network non-stable by (key,
 value)), and dynamic counts (`count=`, the reference's indirect path), on a
 CUDA device unless asked for the CPU, where each kernel's plain PyTorch
-version runs instead.
+version runs instead. uint64, int64 and float64 keys sort the same ways
+on the network (as (hi, lo) uint32 words, key-value in the three-word
+carries of `csrc/network_w64.cu`) and the reference backend; the radix
+backend refuses them.
 """
 
 from .config import SortConfig, config_from_jax, default_config

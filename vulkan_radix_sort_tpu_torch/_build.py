@@ -1,9 +1,9 @@
 """Build and load the CUDA kernels of `csrc/` on first use.
 
 The sources have a plain `extern "C"` interface, so they build with nvcc
-alone (no PyTorch headers) and load with ctypes; `bitonic.cu` takes about
-a minute and a half, for its fully unrolled chunk and local kernels at
-every chunk size. Each source
+alone (no PyTorch headers) and load with ctypes; `bitonic.cu` and
+`network_w64.cu` take a minute and more each, for their fully unrolled
+chunk and local kernels at every chunk size. Each source
 compiles to an object in its own nvcc process, all started together, and
 the objects link into one library in `_build/` beside this file, named by
 a hash of the sources, their shared header and the flags, so a changed
@@ -24,14 +24,16 @@ from pathlib import Path
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
-SOURCES = ("bitonic.cu", "fused.cu", "radix.cu")
-HEADERS = ("network.cuh",)  # included by bitonic.cu and fused.cu
+SOURCES = ("bitonic.cu", "fused.cu", "network_w64.cu", "radix.cu")
+# included by bitonic.cu, fused.cu and network_w64.cu
+HEADERS = ("network.cuh", "bitonic.cuh", "fused.cuh")
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-# The network kernels: (mode, k, t, v, n_units, *extra, valid, stream).
+# The network kernels: (mode, a0, a1, a2, a3, n_units, *extra, valid,
+# stream), a0..a3 the carry's arrays in order, None past the last.
 _BITONIC = {
     "vrs_chunk": (_I,),                  # lc
     "vrs_local": (_I, _I),               # lc, r
@@ -40,7 +42,7 @@ _BITONIC = {
 }
 # name -> argtypes; every function returns cudaGetLastError() as an int
 SIGNATURES = {
-    **{name: (_I, _P, _P, _P, _LL, *extra, _P, _P)
+    **{name: (_I, _P, _P, _P, _P, _LL, *extra, _P, _P)
        for name, extra in _BITONIC.items()},
     # (kv, keys, vals, out_k, out_v, hist, nblocks, block, shift, bits,
     #  stream)

@@ -27,6 +27,8 @@ KEY_SENTINEL = 0xFFFFFFFF
 BYTES_KEYS = 4      # (k,)
 BYTES_PAIRS = 8     # (k, v), both compared
 BYTES_STABLE = 12   # (k, idx) compared, v rides
+BYTES_W3 = 12       # (hi, lo, v), all compared: non-stable 64-bit kv
+BYTES_W4_BIG = 16   # (hi, lo, idx) compared, v rides: stable 64-bit kv
 
 
 def smem_elems(bytes_per_elem: int) -> int:
@@ -37,11 +39,15 @@ def smem_elems(bytes_per_elem: int) -> int:
 MAX_SMEM_KEYS = smem_elems(BYTES_KEYS)        # 2^15
 MAX_SMEM_PAIRS = smem_elems(BYTES_PAIRS)      # 2^14
 MAX_SMEM_STABLE = smem_elems(BYTES_STABLE)    # 2^14
+MAX_SMEM_W3 = smem_elems(BYTES_W3)            # 2^14
+MAX_SMEM_W4_BIG = smem_elems(BYTES_W4_BIG)    # 2^13
 MIN_CHUNK = 256
 
 # Default chunk (elements one chunk/local kernel block sorts in shared
-# memory). A quarter of each carry's cap, so a fused group of 2^2 chunks
-# still fits one block and the fused-rounds kernel runs on the main path.
+# memory). A quarter of each 32-bit carry's cap, so a fused group of 2^2
+# chunks still fits one block and the fused-rounds kernel runs on the main
+# path. The 64-bit key-value carries take CHUNK_CARRY too; their fused
+# group holds 2 chunks (their 2^13 cap, `Mode.reg_cap`).
 CHUNK_KEYS = MAX_SMEM_KEYS // 4               # 2^13
 CHUNK_CARRY = MAX_SMEM_STABLE // 4            # 2^12
 
@@ -154,8 +160,11 @@ def config_from_jax(fields: dict) -> SortConfig:
     `digit_bits`, `flush_rows`) is dropped too: it is TPU geometry (a 4-bit
     digit for the MXU's one-hot ranks, 128-lane rows, DMA flush rows), and
     the port's radix backend takes Hopper's own defaults. An explicit
-    chunk is kept only if it fits every carry's shared-memory cap (it
-    applies to every path); otherwise this raises rather than clamp.
+    chunk is kept only if it fits the shared-memory cap of every carry it
+    may meet (it applies to every path): keys, the 32-bit key-value
+    carries, and the 64-bit key-value carries W3 and W4_BIG, whose chunks
+    stop at 2^13 (W4_BIG's shared memory, and W3's registers:
+    `Mode.reg_cap`); otherwise this raises rather than clamp.
     """
     known = {"block", "digit_bits", "flush_rows", "chunk", "backend",
              "interpret", "adaptive"}
@@ -165,7 +174,8 @@ def config_from_jax(fields: dict) -> SortConfig:
     backend = fields.get("backend", "auto")
     backend = "reference" if backend == "xla" else backend
     chunk = fields.get("chunk")
-    cap = min(MAX_SMEM_KEYS, MAX_SMEM_PAIRS, MAX_SMEM_STABLE)
+    cap = min(MAX_SMEM_KEYS, MAX_SMEM_PAIRS, MAX_SMEM_STABLE, MAX_SMEM_W3,
+              MAX_SMEM_W4_BIG)
     if chunk is not None and chunk > cap:
         raise ValueError(
             f"chunk {chunk} exceeds the {cap}-element shared-memory cap of "

@@ -1,5 +1,6 @@
-// Shared by the network kernels' sources (bitonic.cu, fused.cu): the
-// carry's buffers and the register layout of K1, K2 and K4 (Regs).
+// Shared by the network kernels' sources (bitonic.cu, fused.cu,
+// network_w64.cu, through bitonic.cuh and fused.cuh): the carry's buffers,
+// the register layout of K1, K2 and K4 (Regs), and the mode dispatch.
 
 #pragma once
 
@@ -12,12 +13,40 @@ namespace {
 
 constexpr int kSmemBytes = 232448;
 
+// A carry <WORDS, RIDE>: WORDS lexicographically compared uint32 arrays
+// (k, then t, then u), then RIDE riding arrays (v) that move with them
+// uncompared. KEYS <1,0>, PAIRS <2,0>, STABLE <2,1>, and the 64-bit key
+// carries W3 <3,0> (hi, lo, v) and W4_BIG <3,1> (hi, lo, idx; v rides).
 template <int WORDS, int RIDE>
 struct Bufs {
   uint32_t* k;
   uint32_t* t;
+  uint32_t* u;
   uint32_t* v;
 };
+
+__host__ __device__ constexpr int log2_of(int n) {
+  return n <= 1 ? 0 : 1 + log2_of(n >> 1);
+}
+
+// log2 of the largest power-of-two element count of a carry of `arrays`
+// uint32 arrays that one block's shared memory holds: each carry's cap on
+// chunks, groups and cross tiles (`Mode.smem_cap` in Python).
+__host__ __device__ constexpr int smem_cap_log(int arrays) {
+  return log2_of(kSmemBytes / (4 * arrays));
+}
+
+// log2 of the largest chunk (K1, K4) and fused group (K2) of a carry: its
+// shared-memory cap, lowered so that each of the 256 threads a block has
+// there holds at most kRegWordsCompared compared words in registers. W3
+// at 2^14 would hold 192 and spills (ptxas of CUDA 12.8), where STABLE's
+// 128 compared and 64 riding words fit. `Mode.reg_cap` in Python.
+constexpr int kRegWordsCompared = 128;
+__host__ __device__ constexpr int reg_cap_log(int words, int ride) {
+  const int r = log2_of(kRegWordsCompared * 256 / words);
+  const int s = smem_cap_log(words + ride);
+  return r < s ? r : s;
+}
 
 // ---------------------------------------------------------------------------
 // K1 and K4 (and K6): one C-element chunk per block, E elements per thread
@@ -42,7 +71,7 @@ struct Bufs {
 //
 // Directions: within a phase (direction bit p) each element's direction
 // is fixed, so an element whose pair descends is held bitwise negated in
-// both compared words; every stage then sorts ascending with the strict
+// every compared word; every stage then sorts ascending with the strict
 // test, which on negated words is exactly the descending one (ties never
 // swap, riding values are never negated). Masks change only between
 // phases, with one XOR per compared word.
@@ -54,11 +83,11 @@ struct Bufs {
 constexpr int kNetThreads = 512;  // largest block; NET_THREADS in the wrapper
 
 // Threads of a chunk or local block at C = 2^lc: one per 16 keys or per 8
-// elements of a two-word carry, at least one warp and at most kNetThreads;
-// and 256 where a thread would hold 64 words or more (each carry's largest
-// chunk), so its registers stay within the 255 a thread may have at 256
-// threads rather than the 128 it has at 512. Must match `block_geometry`
-// in ops/bitonic_kernels.py.
+// elements of a carry of two or three words, at least one warp and at
+// most kNetThreads; and 256 where a thread would hold 64 words or more
+// (each carry's largest chunk), so its registers stay within the 255 a
+// thread may have at 256 threads rather than the 128 it has at 512. Must
+// match `block_geometry` in ops/bitonic_kernels.py.
 __host__ __device__ constexpr int net_threads(int words, int ride, int lc) {
   const int c = 1 << lc;
   int t = c / (words == 1 ? 16 : 8);
@@ -83,8 +112,6 @@ __host__ __device__ constexpr int pad_index(int i) {
 
 __host__ __device__ constexpr int padded_words(int n) { return pad_index(n); }
 
-__host__ __device__ constexpr int log2_of(int n) { return n <= 1 ? 0 : 1 + log2_of(n >> 1); }
-
 template <int WORDS, int RIDE, int LC,
           int THREADS = net_threads(WORDS, RIDE, LC)>
 struct Regs {
@@ -95,15 +122,17 @@ struct Regs {
   // layout B reaches every distance from 2^(L+5) up
   static_assert(E >= 4 && LC <= 2 * L + 10, "unsupported chunk geometry");
   static constexpr bool kUsesSmem = LC - 1 >= L + 5;
-  // Lane stages in a loop for the carry with a riding array: unrolled, its
-  // chunk and local kernels need more than the 64 registers a thread that
-  // two 512-thread blocks on one SM allow (measured, ptxas of CUDA 12.9).
-  static constexpr int kShflUnroll = RIDE ? 1 : 5;
+  // Lane stages in a loop for the carries with a riding array or three
+  // words: unrolled, the stable carry's chunk and local kernels need more
+  // than the 64 registers a thread that two 512-thread blocks on one SM
+  // allow (measured, ptxas of CUDA 12.9).
+  static constexpr int kShflUnroll = RIDE != 0 || WORDS == 3 ? 1 : 5;
   static constexpr size_t kSmemBytes =
       kUsesSmem ? size_t(WORDS_PAD) * 4 * (WORDS + RIDE) : 0;
 
   uint32_t k[E];
-  uint32_t t[WORDS == 2 ? E : 1];
+  uint32_t t[WORDS >= 2 ? E : 1];
+  uint32_t u[WORDS == 3 ? E : 1];
   uint32_t v[RIDE ? E : 1];
 
   // First global index of the thread's elements.
@@ -121,11 +150,13 @@ struct Regs {
                                        uint64_t base) {
     const uint4* pk = reinterpret_cast<const uint4*>(g.k + base);
     const uint4* pt = reinterpret_cast<const uint4*>(g.t + base);
+    const uint4* pu = reinterpret_cast<const uint4*>(g.u + base);
     const uint4* pv = reinterpret_cast<const uint4*>(g.v + base);
 #pragma unroll
     for (int q = 0; q < E / 4; ++q) {
       unpack(k, q, pk[q]);
-      if constexpr (WORDS == 2) unpack(t, q, pt[q]);
+      if constexpr (WORDS >= 2) unpack(t, q, pt[q]);
+      if constexpr (WORDS == 3) unpack(u, q, pu[q]);
       if constexpr (RIDE != 0) unpack(v, q, pv[q]);
     }
   }
@@ -134,11 +165,13 @@ struct Regs {
                                         uint64_t base) const {
     uint4* pk = reinterpret_cast<uint4*>(g.k + base);
     uint4* pt = reinterpret_cast<uint4*>(g.t + base);
+    uint4* pu = reinterpret_cast<uint4*>(g.u + base);
     uint4* pv = reinterpret_cast<uint4*>(g.v + base);
 #pragma unroll
     for (int q = 0; q < E / 4; ++q) {
       pk[q] = pack(k, q);
-      if constexpr (WORDS == 2) pt[q] = pack(t, q);
+      if constexpr (WORDS >= 2) pt[q] = pack(t, q);
+      if constexpr (WORDS == 3) pu[q] = pack(u, q);
       if constexpr (RIDE != 0) pv[q] = pack(v, q);
     }
   }
@@ -154,9 +187,11 @@ struct Regs {
     return make_uint4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
   }
 
+  // Every compared word; a riding value is never negated.
   __device__ __forceinline__ void negate(int e, uint32_t m) {
     k[e] ^= m;
-    if constexpr (WORDS == 2) t[e] ^= m;
+    if constexpr (WORDS >= 2) t[e] ^= m;
+    if constexpr (WORDS == 3) u[e] ^= m;
   }
 
   __device__ __forceinline__ void negate_all(uint32_t m) {
@@ -164,7 +199,8 @@ struct Regs {
     for (int e = 0; e < E; ++e) negate(e, m);
   }
 
-  // Ascending compare-exchange of registers a < b; ties never swap.
+  // Ascending compare-exchange of registers a < b; ties never swap. The
+  // first two words compare as one 64-bit word, a third word on a tie.
   __device__ __forceinline__ void ce(int a, int b) {
     if constexpr (WORDS == 1) {
       const uint32_t x = k[a], y = k[b];
@@ -172,12 +208,19 @@ struct Regs {
       k[b] = max(x, y);
     } else {
       const uint32_t ka = k[a], ta = t[a];
-      const bool swap = ((uint64_t(ka) << 32) | ta) >
-                        ((uint64_t(k[b]) << 32) | t[b]);
+      const uint64_t xa = (uint64_t(ka) << 32) | ta;
+      const uint64_t xb = (uint64_t(k[b]) << 32) | t[b];
+      bool swap = xa > xb;
+      if constexpr (WORDS == 3) swap = swap || (xa == xb && u[a] > u[b]);
       k[a] = swap ? k[b] : ka;
       k[b] = swap ? ka : k[b];
       t[a] = swap ? t[b] : ta;
       t[b] = swap ? ta : t[b];
+      if constexpr (WORDS == 3) {
+        const uint32_t ua = u[a];
+        u[a] = swap ? u[b] : ua;
+        u[b] = swap ? ua : u[b];
+      }
       if constexpr (RIDE != 0) {
         const uint32_t va = v[a];
         v[a] = swap ? v[b] : va;
@@ -205,13 +248,17 @@ struct Regs {
         k[e] = upper ? max(k[e], yk) : min(k[e], yk);
       } else {
         const uint32_t yt = __shfl_xor_sync(0xFFFFFFFFu, t[e], m);
-        uint32_t yv = 0;
+        uint32_t yu = 0, yv = 0;
+        if constexpr (WORDS == 3) yu = __shfl_xor_sync(0xFFFFFFFFu, u[e], m);
         if constexpr (RIDE != 0) yv = __shfl_xor_sync(0xFFFFFFFFu, v[e], m);
         const uint64_t x = (uint64_t(k[e]) << 32) | t[e];
         const uint64_t y = (uint64_t(yk) << 32) | yt;
-        const bool take = upper ? y > x : y < x;
+        bool take = upper ? y > x : y < x;
+        if constexpr (WORDS == 3)
+          take = take || (x == y && (upper ? yu > u[e] : yu < u[e]));
         k[e] = take ? yk : k[e];
         t[e] = take ? yt : t[e];
+        if constexpr (WORDS == 3) u[e] = take ? yu : u[e];
         if constexpr (RIDE != 0) v[e] = take ? yv : v[e];
       }
     }
@@ -224,8 +271,9 @@ struct Regs {
     for (int e = 0; e < E; ++e) {
       uint32_t* p = s + pbase + pad_index(e << SH);
       p[0] = k[e];
-      if constexpr (WORDS == 2) p[WORDS_PAD] = t[e];
-      if constexpr (RIDE != 0) p[2 * WORDS_PAD] = v[e];
+      if constexpr (WORDS >= 2) p[WORDS_PAD] = t[e];
+      if constexpr (WORDS == 3) p[2 * WORDS_PAD] = u[e];
+      if constexpr (RIDE != 0) p[WORDS * WORDS_PAD] = v[e];
     }
   }
 
@@ -235,8 +283,9 @@ struct Regs {
     for (int e = 0; e < E; ++e) {
       const uint32_t* p = s + pbase + pad_index(e << SH);
       k[e] = p[0];
-      if constexpr (WORDS == 2) t[e] = p[WORDS_PAD];
-      if constexpr (RIDE != 0) v[e] = p[2 * WORDS_PAD];
+      if constexpr (WORDS >= 2) t[e] = p[WORDS_PAD];
+      if constexpr (WORDS == 3) u[e] = p[2 * WORDS_PAD];
+      if constexpr (RIDE != 0) v[e] = p[WORDS * WORDS_PAD];
     }
   }
 
@@ -328,17 +377,37 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
                               int(smem));
 }
 
+// The carry's buffers from the C interface's four pointers, which hold
+// its arrays in order (the compared words, then the riding one) and null
+// past the last.
 template <int W, int R>
-Bufs<W, R> bufs(void* k, void* t, void* v) {
-  return Bufs<W, R>{static_cast<uint32_t*>(k), static_cast<uint32_t*>(t),
-                    static_cast<uint32_t*>(v)};
+Bufs<W, R> bufs(void* a0, void* a1, void* a2, void* a3) {
+  const auto p = [](void* a) { return static_cast<uint32_t*>(a); };
+  return Bufs<W, R>{p(a0), p(a1), W == 3 ? p(a2) : nullptr,
+                    p(W == 3 ? a3 : a2)};
 }
 
 }  // namespace
 
+// The three-word carries' launchers, in network_w64.cu (nvcc builds it
+// beside bitonic.cu and fused.cu, in parallel): modes 3 and 4 of
+// launch_regs, launch_cross and launch_fused.
+namespace vrs {
+int launch_regs_w64(int mode, void* a0, void* a1, void* a2, void* a3,
+                    long long nunits, int lc, int r, const int* valid,
+                    cudaStream_t st);
+int launch_cross_w64(int mode, void* a0, void* a1, void* a2, void* a3,
+                     long long ngroups, int lc, int r, int t_lo, int span,
+                     const int* valid, cudaStream_t st);
+int launch_fused_w64(int mode, void* a0, void* a1, void* a2, void* a3,
+                     long long ngroups, int lc, int r_lo, int r_hi,
+                     const int* valid, cudaStream_t st);
+}  // namespace vrs
 
-// Mode codes: 0 = KEYS <1,0>, 1 = PAIRS <2,0>, 2 = STABLE <2,1>. Each call
-// launches one kernel on `stream` and returns cudaGetLastError().
+// Mode codes: 0 = KEYS <1,0>, 1 = PAIRS <2,0>, 2 = STABLE <2,1>, and
+// 3 = W3 <3,0>, 4 = W4_BIG <3,1> through the launchers of network_w64.cu.
+// Each call launches one kernel on `stream` and returns
+// cudaGetLastError().
 #define VRS_DISPATCH(mode, fn, ...)                      \
   switch (mode) {                                        \
     case 0:                                              \
@@ -347,6 +416,20 @@ Bufs<W, R> bufs(void* k, void* t, void* v) {
       return fn<2, 0>(__VA_ARGS__);                      \
     case 2:                                              \
       return fn<2, 1>(__VA_ARGS__);                      \
+    case 3:                                              \
+    case 4:                                              \
+      return vrs::fn##_w64(mode, __VA_ARGS__);           \
+    default:                                             \
+      return int(cudaErrorInvalidValue);                 \
+  }
+
+// The same dispatch inside network_w64.cu, for modes 3 and 4.
+#define VRS_DISPATCH_W64(mode, fn, ...)                  \
+  switch (mode) {                                        \
+    case 3:                                              \
+      return fn<3, 0>(__VA_ARGS__);                      \
+    case 4:                                              \
+      return fn<3, 1>(__VA_ARGS__);                      \
     default:                                             \
       return int(cudaErrorInvalidValue);                 \
   }

@@ -12,6 +12,11 @@ analogs of the reference host library's entry points
   vrdxCmdSortKeyValue                 -> Sorter.sort_key_value(keys, values)
   vrdxCmdSortKeyValueIndirect         -> Sorter.sort_key_value(..., count=...)
 
+Keys may be uint32, int32, float32, or (beyond the reference's uint32-only
+API, as in the JAX package) uint64, int64 and float64, which sort as (hi,
+lo) uint32 word pairs on the network and the reference backend; the radix
+backend refuses them.
+
 A sorter lives on one device, the card unless the caller asks for the CPU.
 A tensor on another device is refused, never moved. PyTorch runs eagerly,
 so there is no compiled pipeline to cache: the kernels build once per
@@ -52,22 +57,27 @@ def _resolve_device(device) -> torch.device:
 
 
 class Sorter:
-    """Ascending sorts of 32-bit keys and key-value pairs on one device."""
+    """Ascending sorts of 32- and 64-bit keys and key-value pairs (uint32
+    values) on one device."""
 
     def __init__(self, max_n: int, key_dtype=torch.uint32,
                  config: SortConfig | None = None, device="cuda"):
         if max_n <= 0:
             raise ValueError("max_n must be positive")
-        if key_dtype in bitops.WIDE_DTYPES:
-            raise NotImplementedError(f"{key_dtype} keys {_NOT_YET}")
-        if key_dtype not in bitops.ENCODERS:
+        self.wide = key_dtype in bitops.WIDE_DTYPES
+        encoders = bitops.ENCODERS64 if self.wide else bitops.ENCODERS
+        if key_dtype not in encoders:
             raise ValueError(f"unsupported key dtype {key_dtype}")
         self.config = config or default_config()
         self.max_n = int(max_n)
         self.key_dtype = key_dtype
         self.device = _resolve_device(device)
-        self._encode, self._decode = bitops.ENCODERS[key_dtype]
+        self._encode, self._decode = encoders[key_dtype]
         self.backend = _pick_backend(self.config, self.device)
+        if self.wide and self.backend == "radix":
+            raise NotImplementedError(
+                "the radix backend does not support 64-bit keys; use "
+                "backend='network' (or 'auto'/'reference')")
 
     # -- storage sizing (analog of h.in:279-308) ---------------------------
 
@@ -80,8 +90,13 @@ class Sorter:
         multiple, one pass's (nblocks, radix) histogram and run offsets,
         and the spine's digit totals and offsets. reference: int64-widened
         keys, torch.sort's int64 values and indices, and the gathered
-        uint32 outputs.
+        uint32 outputs. 64-bit keys, any backend: the padded (hi, lo) word
+        buffers (plus the index tiebreak and values for key-value) and the
+        8-byte input and output keys, as in the JAX package.
         """
+        if self.wide:
+            np2 = 1 << max(8, (self.max_n - 1).bit_length())
+            return 4 * np2 * (4 if key_value else 2) + 2 * 8 * self.max_n
         if self.backend == "network":
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (3 if key_value else 1)
@@ -125,6 +140,8 @@ class Sorter:
         path."""
         self._check(keys)
         u = self._encode(keys)
+        if self.wide:
+            return self._decode(self._sort64(u, count))
         if count is None:
             if self.backend == "network":
                 out = bitonic.sort_u32(u, chunk=self.config.chunk_keys)
@@ -159,6 +176,9 @@ class Sorter:
         """
         self._check(keys, values)
         u = self._encode(keys)
+        if self.wide:
+            k, v = self._sort_pairs64(u, values, count, stable)
+            return self._decode(k), v
         if count is None:
             if self.backend == "network":
                 k, v = bitonic.sort_pairs_u32(
@@ -188,6 +208,56 @@ class Sorter:
                                           chunk=self.config.chunk_carry,
                                           stable=stable)
         return (self._decode(bitops.select_u32(live, k, u)),
+                bitops.select_u32(live, v, values))
+
+    # -- 64-bit keys: (hi, lo) words (JAX sorter.py:234-262, 287-315,
+    # 340-367, 404-437) ----------------------------------------------------
+
+    def _sort64(self, u: torch.Tensor, count) -> torch.Tensor:
+        """Keys-only sort of encoded uint64 keys: on the network the (hi,
+        lo) words ride the non-stable (k, v) carry, whose order is theirs.
+        With `count`, keys past it are masked to the u64 maximum: as for
+        32-bit keys, genuine maximum keys are bitwise interchangeable with
+        the mask in the output, so no index carry is needed."""
+        chunk = self.config.chunk_carry
+        cnt = None if count is None else bitonic.count_tensor(count,
+                                                              self.device)
+        if self.backend == "reference":
+            return (reference.sort_keys64(u) if cnt is None
+                    else reference.sort_keys64_count(u, cnt))
+        if cnt is None:
+            hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(u), chunk=chunk,
+                                            stable=False)
+            return bitops.merge_u64(hi, lo)
+        live = self._live(u.numel(), cnt)
+        masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
+        hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(masked), cnt,
+                                        chunk=chunk, stable=False)
+        return bitops.select_u64(live, bitops.merge_u64(hi, lo), u)
+
+    def _sort_pairs64(self, u: torch.Tensor, values: torch.Tensor, count,
+                      stable: bool):
+        """Key-value sort of encoded uint64 keys: W4_BIG (stable) or W3 on
+        the network; `count` masks as `sort_key_value` does."""
+        chunk = self.config.chunk_carry
+        cnt = None if count is None else bitonic.count_tensor(count,
+                                                              self.device)
+        if self.backend == "reference":
+            return (reference.sort_pairs64(u, values) if cnt is None
+                    else reference.sort_pairs64_count(u, values, cnt))
+        if cnt is None:
+            hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(u), values,
+                                               chunk=chunk, stable=stable)
+            return bitops.merge_u64(hi, lo), v
+        live = self._live(u.numel(), cnt)
+        masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
+        # non-stable: the masked tail is the lexicographic maximum, as in
+        # sort_key_value
+        mv = values if stable else bitops.select_u32(
+            live, values, bitops.max_like_u32(values))
+        hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(masked), mv, cnt,
+                                           chunk=chunk, stable=stable)
+        return (bitops.select_u64(live, bitops.merge_u64(hi, lo), u),
                 bitops.select_u32(live, v, values))
 
     def sort_timed(self, keys, iters: int = 10):

@@ -3,7 +3,7 @@
 Counterpart of the single-chip sort path of
 `vulkan_radix_sort_tpu/ops/bitonic.py` (`_plan`, `_pad_pow2` as
 `bitops.pad_u32`, `_stable_idx`, `_sort_padded`, `sort_u32`,
-`sort_pairs_u32`). The network is the same:
+`sort_pairs_u32`, `sort_pairs_w64`). The network is the same:
 
   1. chunk (K1): sort each C-element chunk in shared memory, even chunks
      ascending and odd ones descending;
@@ -24,7 +24,9 @@ granularity, never per chunk (see `_sort_padded`).
 
 Carries: keys (k); stable key-value (k, idx, v) with the original index as
 the tiebreak; non-stable key-value (k, v) compared lexicographically, so
-equal keys come out by ascending value.
+equal keys come out by ascending value. 64-bit keys come as (hi, lo) words:
+keys-only through the (k, v) carry, key-value through W3 (hi, lo, v) or,
+stable, W4_BIG (hi, lo, idx, v).
 """
 
 from __future__ import annotations
@@ -33,15 +35,16 @@ import torch
 
 from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
 from . import bitonic_kernels as bk
-from .bitonic_kernels import KEYS, PAIRS, STABLE, CROSS_W, log2
+from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, CROSS_W, log2
 from .bitops import check_u32, pad_u32
 
 # Elements a fused-rounds group may hold, on top of each carry's
 # shared-memory cap. Tests lower it to pin the unfused cross + local path.
 MAX_FUSED_ELEMS = 1 << 15
 
-# pad tiebreak of the stable carry: above every genuine index and constant,
-# so pad regions are all-tied and every stage maps them to themselves
+# pad tiebreak of the stable carries: above every genuine index and
+# constant, so pad regions are all-tied and every stage maps them to
+# themselves
 STABLE_PAD_IDX = 0x7FFFFFFF
 
 
@@ -72,7 +75,7 @@ def _stable_idx(n: int, np2: int, device, count=None) -> torch.Tensor:
 
 def _fused_rounds(C: int, nrounds: int, mode) -> int:
     """Last merge round of the fused group (0: no fused rounds)."""
-    cap = min(MAX_FUSED_ELEMS, mode.smem_cap)
+    cap = min(MAX_FUSED_ELEMS, mode.reg_cap)
     r_hi = 0
     while r_hi < nrounds and C << (r_hi + 1) <= cap:
         r_hi += 1
@@ -156,9 +159,11 @@ def count_tensor(count, device: torch.device) -> torch.Tensor | None:
 
 
 def _checked_chunk(chunk: int, mode) -> int:
-    if chunk > mode.smem_cap:
-        raise ValueError(f"chunk {chunk} exceeds the {mode.smem_cap}-element "
-                         f"shared-memory cap of the {mode.name} carry")
+    if chunk > mode.reg_cap:
+        why = ("shared-memory" if mode.reg_cap == mode.smem_cap else
+               "register (its larger chunks spill registers)")
+        raise ValueError(f"chunk {chunk} exceeds the {mode.reg_cap}-element "
+                         f"{why} cap of the {mode.name} carry")
     return chunk
 
 
@@ -203,6 +208,37 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
     if n:
         _sort_padded(arrs, mode, np2, C, n, cnt)
     return arrs[0][:n], arrs[-1][:n]
+
+
+def sort_pairs_w64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor,
+                   count=None, *, chunk: int | None = None,
+                   stable: bool = True):
+    """Key-value sort of 64-bit keys given as (hi, lo) uint32 words.
+
+    The key order is (hi, lo) lexicographic, i.e. unsigned 64-bit order;
+    the caller applies any order-preserving encoding before the split.
+    stable=True runs W4_BIG at every n: (hi, lo, original index) compared,
+    values riding, pads (max, max, STABLE_PAD_IDX). The JAX package's
+    packed-lazy MODE_W4 is a Mosaic lane trick; a stable order is unique,
+    so the result is bitwise the same. stable=False runs W3: (hi, lo,
+    value) compared, value pads 0xFFFFFFFF, so equal keys come out by
+    ascending value. `count` as in `sort_pairs_u32`: the caller has masked
+    the keys past it to the maximum (and, with stable=False, the values).
+    Returns new (hi, lo, values) tensors.
+    """
+    check_u32(hi, lo, values)
+    n = hi.numel()
+    mode = W4_BIG if stable else W3
+    np2, C = _plan(n, _checked_chunk(chunk or CHUNK_CARRY, mode))
+    cnt = count_tensor(count, hi.device)
+    arrs = [pad_u32(hi, np2, 0xFFFFFFFF), pad_u32(lo, np2, 0xFFFFFFFF)]
+    if stable:
+        arrs += [_stable_idx(n, np2, hi.device, cnt), pad_u32(values, np2, 0)]
+    else:
+        arrs.append(pad_u32(values, np2, 0xFFFFFFFF))
+    if n:
+        _sort_padded(arrs, mode, np2, C, n, cnt)
+    return arrs[0][:n], arrs[1][:n], arrs[-1][:n]
 
 
 # -- slot merge: finish a sort whose input is already sorted runs ------------

@@ -1,7 +1,8 @@
 """The bitonic network's kernels: a wrapper and a plain version for each.
 
-Each kernel of `csrc/bitonic.cu` (and `csrc/fused.cu`, K2) replaces one
-Pallas kernel of `vulkan_radix_sort_tpu/ops/bitonic.py`:
+Each kernel of `csrc/bitonic.cu` (and `csrc/fused.cu`, K2; the three-word
+carries W3 and W4_BIG of all of them in `csrc/network_w64.cu`) replaces
+one Pallas kernel of `vulkan_radix_sort_tpu/ops/bitonic.py`:
 
   chunk  (K1)  _run_chunk / _chunk_phases_body      bitonic.py:934, 513
   fused  (K2)  _run_fused_rounds / _fused_rounds_body  bitonic.py:723, 628
@@ -10,7 +11,7 @@ Pallas kernel of `vulkan_radix_sort_tpu/ops/bitonic.py`:
   valid= (K5)  _gate_body                           bitonic.py:746
   local_gated (K6)  _block_call_dma_gated           bitonic.py:793
 
-Every kernel works in place on the carry's flat uint32 buffers (1 to 3 of
+Every kernel works in place on the carry's flat uint32 buffers (1 to 4 of
 them, see `Mode`), over the first `nunits` grid units only; a unit whose
 `valid` flag (int32, one per unit) is 0 is left as it is. What bounds each
 kernel on an H100 and what its design does about it is noted in the CUDA
@@ -61,14 +62,27 @@ class Mode(NamedTuple):
 
     @property
     def smem_cap(self) -> int:
-        """Elements of this carry one thread block holds in shared memory."""
+        """Elements of this carry one thread block holds in shared memory
+        (the cross kernel's largest tile)."""
         return smem_elems(4 * self.n_arrays)
+
+    @property
+    def reg_cap(self) -> int:
+        """Largest chunk (K1, K4) and fused group (K2): the shared-memory
+        cap, lowered so that each of the WIDE_THREADS threads holds at most
+        REG_WORDS_COMPARED compared words (reg_cap_log in
+        csrc/network.cuh). Only W3 is lowered, to 2^13: at 2^14 a thread
+        would hold 192 and its kernels spill registers."""
+        c = REG_WORDS_COMPARED * WIDE_THREADS // self.words
+        return min(self.smem_cap, 1 << (c.bit_length() - 1))
 
 
 KEYS = Mode("keys", 0, 1, 0)      # (k,)
 PAIRS = Mode("pairs", 1, 2, 0)    # (k, v): non-stable key-value
 STABLE = Mode("stable", 2, 2, 1)  # (k, idx) compared, v rides: stable kv
-MODES = (KEYS, PAIRS, STABLE)
+W3 = Mode("w3", 3, 3, 0)          # (hi, lo, v): non-stable 64-bit kv
+W4_BIG = Mode("w4_big", 4, 3, 1)  # (hi, lo, idx) compared, v rides
+MODES = (KEYS, PAIRS, STABLE, W3, W4_BIG)
 
 # consecutive elements per row of a cross tile; kCrossW in csrc/bitonic.cu
 LOG_CROSS_W = 6
@@ -76,18 +90,19 @@ CROSS_W = 1 << LOG_CROSS_W
 
 # The chunk, local and fused kernels keep E elements per thread in
 # registers (net_threads and kNetThreads in csrc/network.cuh): 16 keys or 8
-# elements of a two-word carry per thread, raised so a block has at most
-# NET_THREADS threads and lowered so it has at least one warp; a thread
-# that would hold REG_WORDS words or more (each carry's largest chunk)
-# takes WIDE_THREADS threads instead, which leaves it twice the registers.
-# A fused group of G elements has the geometry of a chunk of G, except
-# there (fused_threads in csrc/fused.cu): one such block fits an SM, so
-# it takes MAX_THREADS threads if a thread then holds at most half of
-# REG_WORDS words, else NET_THREADS.
+# elements of a two- or three-word carry per thread, raised so a block has
+# at most NET_THREADS threads and lowered so it has at least one warp; a
+# thread that would hold REG_WORDS words or more (each carry's largest
+# chunk) takes WIDE_THREADS threads instead, which leaves it twice the
+# registers. A fused group of G elements has the geometry of a chunk of G,
+# except there (fused_threads in csrc/fused.cuh): one such block fits an
+# SM, so it takes MAX_THREADS threads if a thread then holds at most half
+# of REG_WORDS words, else NET_THREADS.
 NET_THREADS = 512
 WIDE_THREADS = 256
 MAX_THREADS = 1024
 REG_WORDS = 64
+REG_WORDS_COMPARED = 128
 WARP = 32
 REG_KERNELS = ("chunk", "local", "local_gated", "fused")
 
@@ -134,7 +149,7 @@ class Launch(NamedTuple):
     tile: int      # elements one block holds in shared memory
     stages: tuple  # (j, p): pair i with i ^ 2^j, descending iff bit p of i
     cfn: str       # C entry point
-    cargs: tuple   # its arguments after (mode, k, t, v, n_units)
+    cargs: tuple   # its arguments after (mode, a0, a1, a2, a3, n_units)
 
 
 def spec(kernel: str, C: int, *args: int) -> Launch:
@@ -184,10 +199,12 @@ def _check(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
     if not 0 <= nunits * launch.unit <= n:
         raise ValueError(f"{nunits} units of {launch.unit} exceed {n} "
                          "elements")
-    if launch.tile > mode.smem_cap:
+    reg = launch.kernel in REG_KERNELS
+    cap = mode.reg_cap if reg else mode.smem_cap
+    if launch.tile > cap:
         raise ValueError(f"a {launch.kernel} tile of {launch.tile} "
-                         f"{mode.name} elements exceeds the shared-memory "
-                         f"cap {mode.smem_cap}")
+                         f"{mode.name} elements exceeds the "
+                         f"{'register' if reg else 'shared-memory'} cap {cap}")
     if valid is None and launch.kernel == "local_gated":
         raise ValueError("local_gated needs a per-block valid mask")
     if valid is not None and (
@@ -197,35 +214,49 @@ def _check(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
                          "buffers' device with a flag per unit")
 
 
+def _greater(pairs):
+    """a > b in the lexicographic order of the (a, b) column pairs."""
+    (a, b), *rest = pairs
+    gt = a > b
+    if rest:
+        eq = a == b
+        for a, b in rest:
+            gt = gt | (eq & (a > b))
+            eq = eq & (a == b)
+    return gt
+
+
 def _plain(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
     m = launch.unit * nunits
     if m == 0:
         return
     words = [widen_u32(a[:m]) for a in arrs[:mode.words]]
-    # one int64 per element whose order is the carry's lexicographic order
-    key = words[0] if mode.words == 1 else (
-        ((words[0] - (1 << 31)) << 32) | words[1])
+    # int64 columns whose lexicographic order is the carry's: the first one
+    # or two words as one int64, then the third word
+    cols = words[:1] if mode.words == 1 else (
+        [((words[0] - (1 << 31)) << 32) | words[1]] + words[2:])
     ride = arrs[mode.words][:m].view(torch.int32) if mode.ride else None
-    idx = torch.arange(m, device=key.device)
+    moved = cols + ([ride] if ride is not None else [])
+    idx = torch.arange(m, device=cols[0].device)
     for j, p in launch.stages:
         h = 1 << j
-        a, b = key.view(-1, 2, h).unbind(1)
+        pairs = [x.view(-1, 2, h).unbind(1) for x in moved]
         desc = ((idx.view(-1, 2, h)[:, 0] >> p) & 1).bool()
-        swap = torch.where(desc, a < b, a > b)
-        key = torch.stack(
-            (torch.where(swap, b, a), torch.where(swap, a, b)), 1).view(-1)
-        if ride is not None:
-            ra, rb = ride.view(-1, 2, h).unbind(1)
-            ride = torch.stack(
-                (torch.where(swap, rb, ra), torch.where(swap, ra, rb)),
-                1).view(-1)
+        cmp = pairs[:len(cols)]
+        swap = torch.where(desc, _greater([(b, a) for a, b in cmp]),
+                           _greater(cmp))
+        moved = [torch.stack((torch.where(swap, b, a),
+                              torch.where(swap, a, b)), 1).view(-1)
+                 for a, b in pairs]
+    key, *rest = moved
     if mode.words == 1:
         outs = [narrow_u32(key)]
     else:
         outs = [narrow_u32((key >> 32) + (1 << 31)),
                 narrow_u32(key & 0xFFFFFFFF)]
+    outs += [narrow_u32(x) for x in rest[:mode.words - 2]]
     if ride is not None:
-        outs.append(ride.view(torch.uint32))
+        outs.append(rest[-1].view(torch.uint32))
     if valid is not None:
         live = valid[:nunits].bool().repeat_interleave(launch.unit)
         outs = [torch.where(live, o.view(torch.int32),
@@ -243,7 +274,7 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         return
     check_aligned(arrs)
     lib = _build.library()
-    ptrs = [a.data_ptr() for a in arrs] + [None] * (3 - len(arrs))
+    ptrs = [a.data_ptr() for a in arrs] + [None] * (4 - len(arrs))
     vptr = None if valid is None else valid.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream

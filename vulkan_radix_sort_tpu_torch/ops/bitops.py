@@ -1,10 +1,12 @@
-"""Order-preserving bijections from 32-bit key dtypes onto uint32.
+"""Order-preserving bijections from key dtypes onto uint32 and uint64.
 
-Counterpart of the 32-bit encoders in `vulkan_radix_sort_tpu/ops/bitops.py`.
-PyTorch's uint32 is a storage type with few kernels (no `<`, `>>` or
-`minimum`, and fewer still on CUDA), so every operation here works on the
-int32 bit pattern (`.view(torch.int32)`) and only the result is viewed back
-as uint32. The 64-bit encoders come with the 64-bit slice.
+Counterpart of the encoders in `vulkan_radix_sort_tpu/ops/bitops.py`.
+PyTorch's uint32 and uint64 are storage types with few kernels (no `<`,
+`>>` or `minimum`, and fewer still on CUDA), so every operation here works
+on the int32 or int64 bit pattern (`.view(torch.int32)`,
+`.view(torch.int64)`) and only the result is viewed back as unsigned.
+64-bit keys are sorted as (hi, lo) uint32 word pairs (`split_u64`), whose
+lexicographic order is the unsigned 64-bit order.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import torch
 
 _SIGN = -(1 << 31)  # int32 bit pattern of 0x80000000
+_SIGN64 = -(1 << 63)  # int64 bit pattern of 0x8000000000000000
 _MASK32 = 0xFFFFFFFF
 
 
@@ -52,7 +55,73 @@ ENCODERS = {
     torch.float32: (encode_f32, decode_f32),
 }
 
-WIDE_DTYPES = (torch.uint64, torch.int64, torch.float64)
+
+def encode_u64(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def decode_u64(u: torch.Tensor) -> torch.Tensor:
+    return u
+
+
+def encode_i64(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> uint64, order preserving (flip the sign bit)."""
+    return (x ^ _SIGN64).view(torch.uint64)
+
+
+def decode_i64(u: torch.Tensor) -> torch.Tensor:
+    return u.view(torch.int64) ^ _SIGN64
+
+
+def encode_f64(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> uint64 on IEEE-754 total order: negative floats get every
+    bit flipped, the others only the sign bit. NaNs with the sign bit clear
+    land above +inf, those with it set below -inf."""
+    b = x.view(torch.int64)
+    mask = torch.where(b < 0, -1, _SIGN64)
+    return (b ^ mask).view(torch.uint64)
+
+
+def decode_f64(u: torch.Tensor) -> torch.Tensor:
+    b = u.view(torch.int64)
+    mask = torch.where(b < 0, _SIGN64, -1)
+    return (b ^ mask).view(torch.float64)
+
+
+ENCODERS64 = {
+    torch.uint64: (encode_u64, decode_u64),
+    torch.int64: (encode_i64, decode_i64),
+    torch.float64: (encode_f64, decode_f64),
+}
+
+WIDE_DTYPES = tuple(ENCODERS64)
+
+
+def split_u64(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """uint64 -> (hi, lo) uint32 words; (hi, lo) lexicographic order is the
+    uint64 order. Arithmetic on the int64 view, so endianness-independent:
+    the shift keeps the high word, the truncating cast the low one."""
+    b = u.view(torch.int64)
+    hi = (b >> 32).to(torch.int32).view(torch.uint32)
+    lo = b.to(torch.int32).view(torch.uint32)
+    return hi, lo
+
+
+def merge_u64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
+    """(hi, lo) uint32 words -> uint64."""
+    return ((hi.view(torch.int32).to(torch.int64) << 32)
+            | widen_u32(lo)).view(torch.uint64)
+
+
+def max_like_u64(x: torch.Tensor) -> torch.Tensor:
+    """A uint64 tensor like x, filled with 2^64 - 1 (the key sentinel)."""
+    return torch.full_like(x.view(torch.int64), -1).view(torch.uint64)
+
+
+def select_u64(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """torch.where for uint64 operands, through their int64 bit patterns."""
+    return torch.where(cond, a.view(torch.int64), b.view(torch.int64)).view(
+        torch.uint64)
 
 
 def widen_u32(u: torch.Tensor) -> torch.Tensor:
