@@ -52,6 +52,24 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      buffers: the merge gated by the slot sizes, the same merge ungated,
      and the full network re-sort the fallback runs, keys and stable kv;
      and K6 per launch against the ungated local pass.
+  9. stages: Sorter.sort_timed / sort_key_value_timed at 2^25 (network
+     keys, stable and non-stable kv, uint64 keys; radix keys): each
+     network sort's recorded launches must equal one sort's launch
+     counters, and its stage sum must lie within [0.8, 1.05] of its
+     total;
+ 10. adaptive: SortConfig(adaptive=True) network sorts at 2^25 on
+     sorted, reverse, constant and uniform keys and stable kv on sorted
+     and reverse keys, each against numpy; the fast paths must launch no
+     network kernel, the others must, and a timed adaptive sort of
+     uniform keys must launch the kernels on every call; the detection's
+     own cost against a full sort;
+ 11. sweep: the bench harness's `measure` for the network, radix and
+     reference backends at 2^14 to 2^25 (keys, kv, kvns), each after
+     its correctness gate, one point of the native C++ engine, and the
+     sizes from which network and radix beat the reference backend;
+ 12. profile: one profiling.trace around network keys sorts at 2^25:
+     device time by kernel name (K1-K4) and the device's busy share of
+     the traced window.
 Then the `kernels` JSON line (each network row with its 64-bit carries'
 figures under "w3" and "w4_big"), the card's name and power limit as
 nvidia-smi gives them, and last the {"ok": true, ...} result line.
@@ -60,6 +78,7 @@ nvidia-smi gives them, and last the {"ok": true, ...} result line.
 from __future__ import annotations
 
 import json
+import os
 import re
 import subprocess
 import sys
@@ -79,7 +98,9 @@ from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
-from vulkan_radix_sort_tpu_torch.utils import datagen
+from vulkan_radix_sort_tpu_torch.bench import harness
+from vulkan_radix_sort_tpu_torch.models import sorter as sorter_mod
+from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
 from vulkan_radix_sort_tpu_torch.utils.timing import time_fn
 
 N = 1 << 25          # the reference's headline size
@@ -667,29 +688,6 @@ def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
     _expect(gv, vals[o], "float64 stable kv, values")
 
 
-class CarryLog:
-    """Launches per carry and kernel counter: wraps the network wrappers'
-    launch function and attributes each rise of their counters to the
-    launch's carry (the counters rise only where a kernel launches)."""
-
-    def __enter__(self):
-        self.counts = {}
-        self._real = real = bk._launch
-
-        def logged(launch, arrs, mode, nunits, valid):
-            before = dict(bk.launches)
-            real(launch, arrs, mode, nunits, valid)
-            c = self.counts.setdefault(mode.name, dict.fromkeys(bk.launches,
-                                                                0))
-            for k, v in bk.launches.items():
-                c[k] += v - before[k]
-        bk._launch = logged
-        return self
-
-    def __exit__(self, *exc):
-        bk._launch = self._real
-
-
 W64_CARRIES = ("w3", "w4_big")
 W64_KERNELS = ("chunk", "fused", "cross", "local", "gate")
 
@@ -697,74 +695,32 @@ W64_KERNELS = ("chunk", "fused", "cross", "local", "gate")
 def _path_launches64(oracles) -> dict:
     """Drive the 64-bit path with the counters zeroed just before and read
     just after; each of K1-K5 must have launched in both w3 and w4_big.
-    Returns the launches per carry and kernel."""
+    Returns the launches per carry and kernel: the launch recorder's
+    records attributed to their carries, which must add up to the
+    counters."""
     reset_launches()
-    with CarryLog() as carries:
+    with timing.LaunchTimer() as timer:
         main_path64(oracles=oracles)
         torch.cuda.synchronize()
-    log("[launches] w64", json.dumps(carries.counts))
+    counts = {}
+    for rec in timer.records:
+        carry = rec["mode"].name if "mode" in rec else "radix"
+        c = counts.setdefault(carry, dict.fromkeys(launch_counts(), 0))
+        for k in rec["names"]:
+            c[k] += 1
+    log("[launches] w64", json.dumps(counts))
+    summed = {k: sum(c[k] for c in counts.values()) for k in launch_counts()}
+    if summed != launch_counts():
+        raise AssertionError(f"carries {summed} against counters "
+                             f"{launch_counts()}")
     missing = [(c, k) for c in W64_CARRIES for k in W64_KERNELS
-               if carries.counts.get(c, {}).get(k, 0) == 0]
+               if counts.get(c, {}).get(k, 0) == 0]
     if missing:
         raise AssertionError(f"not launched on the 64-bit path: {missing}")
-    return carries.counts
+    return counts
 
 
 # -- phase 5: times ----------------------------------------------------------
-
-class KernelTimer:
-    """Brackets every kernel launch with CUDA events and keeps what the
-    bound and the plain replay need: the network's launches by wrapping
-    bitonic_kernels.run, K7's and K8's by wrapping the launch functions of
-    their modules (so K8's bracket holds the kernel alone, not the torch
-    offset table before it). `tag` names the sort the launches belong
-    to."""
-
-    def __init__(self):
-        self.records = []
-        self.tag = ""
-        self._saved = [(bk, "run", bk.run), (k7, "_launch", k7._launch),
-                       (k8, "_launch", k8._launch)]
-
-    def _bracket(self, launch, rec):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        out = launch()
-        e.record()
-        self.records.append(dict(rec, tag=self.tag, events=(s, e)))
-        return out
-
-    def __enter__(self):
-        run, launch7, launch8 = (f for _, _, f in self._saved)
-
-        def timed_run(launch, arrs, mode, nunits, valid=None):
-            names = bk.counters(launch, valid)
-            return self._bracket(
-                lambda: run(launch, arrs, mode, nunits, valid),
-                dict(names=names, launch=launch, mode=mode,
-                     numel=arrs[0].numel(), nunits=nunits,
-                     valid=None if valid is None else valid.clone()))
-
-        def timed7(keys, values, shift, config, key_value):
-            return self._bracket(
-                lambda: launch7(keys, values, shift, config, key_value),
-                dict(names=["block_sort"], numel=keys.numel(), shift=shift,
-                     config=config, key_value=key_value))
-
-        def timed8(y, hist, offsets, values, config, key_value):
-            return self._bracket(
-                lambda: launch8(y, hist, offsets, values, config, key_value),
-                dict(names=["place"], numel=y.numel(), config=config,
-                     key_value=key_value))
-
-        bk.run, k7._launch, k8._launch = timed_run, timed7, timed8
-        return self
-
-    def __exit__(self, *exc):
-        for mod, attr, fn in self._saved:
-            setattr(mod, attr, fn)
-
 
 def _bound(nbytes: float, ops: float) -> tuple[float, str]:
     tb, to = nbytes / HBM_BYTES_PER_S, ops / INT32_OPS_PER_S
@@ -952,7 +908,7 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
         fn()
     torch.cuda.synchronize()
     per_sort = {}  # launches of one sort, from the kernels' counters
-    with KernelTimer() as timer:
+    with timing.LaunchTimer() as timer:
         for _ in range(TIMED_RUNS):
             for tag, fn in sorts.items():
                 timer.tag = tag
@@ -1357,6 +1313,270 @@ def gated_block_cost(slot_bufs, records) -> None:
         log(f"[merge-time] K6 back to back, {tag}:", json.dumps(t))
 
 
+# -- phase 9: per-stage times -------------------------------------------------
+
+STAGE_ITERS = 5
+NET_LAUNCHES = ("chunk", "fused", "cross", "local")  # K5 counts no launch
+
+
+def stages_phase(n: int = N) -> dict:
+    """Sorter.sort_timed / sort_key_value_timed on the network (keys,
+    stable and non-stable kv, uint64 keys) and the radix backend (keys).
+    Each network sort's recorded launches must equal one sort's launch
+    counters, and its three stage sums must lie within [0.8, 1.05] of its
+    total."""
+    keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
+    vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
+    k64 = to_dev(np.random.default_rng(SEED + 32).integers(
+        0, 2**64, n, dtype=np.uint64), "cuda")
+    net, rad = vrs.Sorter(n), vrs.Sorter(n, config=RADIX)
+    net64 = vrs.Sorter(n, key_dtype=torch.uint64)
+    cases = {
+        "keys": (lambda i: net.sort_timed(keys, iters=i),
+                 lambda: net.sort(keys)),
+        "stable_kv": (lambda i: net.sort_key_value_timed(keys, vals, iters=i),
+                      lambda: net.sort_key_value(keys, vals)),
+        "nonstable_kv": (lambda i: net.sort_key_value_timed(
+            keys, vals, stable=False, iters=i),
+            lambda: net.sort_key_value(keys, vals, stable=False)),
+        "u64_keys": (lambda i: net64.sort_timed(k64, iters=i),
+                     lambda: net64.sort(k64)),
+        "radix_keys": (lambda i: rad.sort_timed(keys, iters=i),
+                       lambda: rad.sort(keys)),
+    }
+    out = {}
+    for name, (timed, once) in cases.items():
+        t = timed(STAGE_ITERS)
+        reset_launches()
+        once()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        stages = t.upsweep_ns + t.spine_ns + t.downsweep_ns
+        row = {"upsweep_ms": t.upsweep_ns / 1e6, "spine_ms": t.spine_ns / 1e6,
+               "downsweep_ms": t.downsweep_ns / 1e6,
+               "stage_sum_ms": stages / 1e6, "total_ms": t.total_ns / 1e6,
+               "cpu_ms": t.cpu_ns / 1e6,
+               "stage_sum_over_total": stages / t.total_ns}
+        if name.startswith("radix"):
+            row["launches_per_sort"] = {k: counts[k] for k in RADIX_KERNELS}
+            if any(counts[k] != RADIX.num_passes for k in RADIX_KERNELS):
+                raise AssertionError(f"[stages] {name}: {counts}")
+        else:
+            one_sort = sum(counts[k] for k in NET_LAUNCHES)
+            row.update(mode=t.extra["mode"], rounds=t.extra["rounds"],
+                       recorded_launches=len(t.extra["kernels"]),
+                       launches_per_sort=one_sort)
+            if len(t.extra["kernels"]) != one_sort:
+                raise AssertionError(
+                    f"[stages] {name}: {len(t.extra['kernels'])} recorded "
+                    f"launches, {one_sort} counted in one sort")
+            if not 0.8 <= stages / t.total_ns <= 1.05:
+                raise AssertionError(f"[stages] {name}: stage sum "
+                                     f"{stages / 1e6:.3f} ms against total "
+                                     f"{t.total_ns / 1e6:.3f} ms")
+        log(f"[stages] {name}", json.dumps(row))
+        out[name] = row
+    return out
+
+
+# -- phase 10: adaptive fast paths ---------------------------------------------
+
+def _net_launches() -> int:
+    return sum(launch_counts()[k] for k in NET_LAUNCHES)
+
+
+def adaptive_phase(n: int = N, card: str = "") -> dict:
+    """SortConfig(adaptive=True) on the network at n: keys on sorted,
+    reverse, constant and uniform inputs, stable kv on sorted and reverse
+    keys with duplicates; each against numpy. The fast paths (keys
+    sorted / reverse / constant, kv sorted) must launch no network kernel,
+    the others must; a timed adaptive sort of uniform keys must launch the
+    kernels on every timed call. Also the cost of the detection alone
+    (its pass and the host read) against a full network sort."""
+    s = vrs.Sorter(n, config=SortConfig(adaptive=True))
+    out = {"card": card, "n": n}
+    uniform = None
+    for dist in ("sorted", "reverse", "constant", "uniform"):
+        k_np = datagen.generate_keys(n, seed=SEED + 40, distribution=dist)
+        k = to_dev(k_np, "cuda")
+        reset_launches()
+        got = s.sort(k)
+        torch.cuda.synchronize()
+        launched = _net_launches()
+        _expect(got, np.sort(k_np), f"adaptive keys {dist}")
+        fast = dist != "uniform"
+        if (launched == 0) != fast:
+            raise AssertionError(f"adaptive keys {dist}: {launched} network "
+                                 "launches")
+        ms = time_fn(lambda: s.sort(k)) * 1e3
+        out[f"keys_{dist}"] = {"launches": launched, "ms": ms}
+        log(f"[adaptive] keys {dist}: launches={launched} ms={ms:.4f}")
+        if dist == "uniform":
+            uniform = k
+    vals = datagen.generate_values(n, seed=SEED + 41)
+    dup = np.sort(datagen.generate_keys(n, seed=SEED + 42) >> np.uint32(20))
+    for dist, k_np in (("sorted", dup), ("reverse", dup[::-1].copy())):
+        k, v = to_dev(k_np, "cuda"), to_dev(vals, "cuda")
+        reset_launches()
+        gk, gv = s.sort_key_value(k, v)
+        torch.cuda.synchronize()
+        launched = _net_launches()
+        wk, wv = _stable_oracle(k_np, vals)
+        _expect(gk, wk, f"adaptive stable kv {dist}, keys")
+        _expect(gv, wv, f"adaptive stable kv {dist}, values")
+        if (launched == 0) != (dist == "sorted"):
+            raise AssertionError(f"adaptive kv {dist}: {launched} network "
+                                 "launches")
+        ms = time_fn(lambda: s.sort_key_value(k, v)) * 1e3
+        out[f"stable_kv_{dist}"] = {"launches": launched, "ms": ms}
+        log(f"[adaptive] stable kv {dist}: launches={launched} ms={ms:.4f}")
+    # time_fn calls the sort on the same unsorted keys each time: every
+    # call (warm-up and timed) must run the engine
+    reset_launches()
+    warmup, iters, repeats = 1, 3, 2
+    time_fn(lambda: s.sort(uniform), iters=iters, repeats=repeats,
+            warmup=warmup)
+    calls = warmup + iters * repeats
+    chunks = launch_counts()["chunk"]
+    if chunks != calls:
+        raise AssertionError(f"timed adaptive sort: {chunks} chunk launches "
+                             f"in {calls} calls")
+    log(f"[adaptive] timed uniform: {calls} calls, {chunks} chunk launches")
+    u = uniform  # uint32 keys encode to themselves
+    detect = time_fn(lambda: sorter_mod._adaptive_sort(u, lambda x: x))
+    t0 = time.perf_counter()
+    for _ in range(10):
+        sorter_mod._adaptive_sort(u, lambda x: x)
+    host = (time.perf_counter() - t0) / 10
+    full = time_fn(lambda: vrs.Sorter(n).sort(uniform))
+    out.update(detect_ms=detect * 1e3, detect_host_ms=host * 1e3,
+               full_sort_ms=full * 1e3, detect_over_sort=detect / full)
+    log("[adaptive]", json.dumps(out))
+    return out
+
+
+# -- phase 11: the harness's sweep ---------------------------------------------
+
+SWEEP_SIZES = tuple(1 << p for p in range(14, 26))
+SWEEP_SORTS = ("keys", "kv", "kvns")
+SWEEP_ITERS = 5
+
+
+def crossover(mine: dict, ref: dict) -> int | None:
+    """Smallest swept n from which `mine` is faster than `ref` at every
+    larger size (None: not at the largest)."""
+    at = None
+    for n in sorted(mine, reverse=True):
+        if mine[n] >= ref[n]:
+            break
+        at = n
+    return at
+
+
+def sweep_phase(card: str) -> dict:
+    """harness.measure for the three card backends at powers of two from
+    2^14 to 2^25, keys, kv and kvns, each backend after its correctness
+    gate (nonstable included); one cpp point; the sizes from which the
+    network and radix beat the reference (torch.sort) backend."""
+    ms = {}
+    for name in ("network", "radix", "reference"):
+        b = harness.make_backend(name)
+        harness.check_correctness(b, 1 << 16, nonstable=True)
+        rows = []
+        for n in SWEEP_SIZES:
+            for sort in SWEEP_SORTS:
+                r = harness.measure(b, n, sort, iters=SWEEP_ITERS)
+                ms[name, sort, n] = r.gpu_ms
+                rows.append({"n": n, "sort": sort, "gpu_ms": r.gpu_ms,
+                             "cpu_ms": r.cpu_ms,
+                             "gitems_s": r.gpu_gitems_s})
+        log("[sweep]", json.dumps({"backend": name, "card": card,
+                                   "gate": "ok", "results": rows}))
+    cpp = harness.make_backend("cpp")
+    harness.check_correctness(cpp, 1 << 16)
+    rows = [{"n": r.n, "sort": r.sort, "ms": r.gpu_ms,
+             "gitems_s": r.gpu_gitems_s}
+            for r in (harness.measure(cpp, 1 << 20, sort, iters=3)
+                      for sort in ("keys", "kv"))]
+    log("[sweep]", json.dumps({"backend": "cpp", "host": True,
+                               "results": rows}))
+    cross = {f"{name}_{sort}": crossover(
+        {n: ms[name, sort, n] for n in SWEEP_SIZES},
+        {n: ms["reference", sort, n] for n in SWEEP_SIZES})
+        for name in ("network", "radix") for sort in SWEEP_SORTS}
+    log("[sweep] crossover vs reference", json.dumps(cross))
+    return cross
+
+
+# -- phase 12: a profiler trace ------------------------------------------------
+
+PROFILE_SORTS = 5
+KERNEL_LABELS = {"chunk_kernel": "K1", "fused_kernel": "K2",
+                 "cross_kernel": "K3", "local_kernel": "K4"}
+
+
+def _union_us(spans) -> float:
+    total, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total
+
+
+def profile_phase(n: int = N) -> dict:
+    """One profiling.trace around PROFILE_SORTS network keys sorts at n:
+    device time by kernel name, mapped to K1-K4 (K5 is the valid pointer
+    of those kernels and shares their names), and the device's busy share
+    of the traced window (the union of device activity over the window
+    of the sorts)."""
+    keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
+    s = vrs.Sorter(n)
+    s.sort(keys)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as prof:
+            with torch.profiler.record_function("vrs_window"):
+                for _ in range(PROFILE_SORTS):
+                    s.sort(keys)
+                torch.cuda.synchronize()
+        files = os.listdir(d)
+    if not files:
+        raise AssertionError("profiling.trace wrote no trace")
+    events = prof.events()
+    window = [e for e in events if e.name == "vrs_window"]
+    # device activity: kernels, copies and fills; not the device-side
+    # span the profiler draws for a record_function range
+    dev = [e for e in events
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)
+           and e.name != "vrs_window"]
+    if not window or not dev:
+        raise AssertionError("the trace has no window or no device events")
+    w0, w1 = window[0].time_range.start, window[0].time_range.end
+    spans = [(max(e.time_range.start, w0), min(e.time_range.end, w1))
+             for e in dev if e.time_range.end > w0 and e.time_range.start < w1]
+    by_name = {}
+    for e in dev:
+        label = next((k for name, k in KERNEL_LABELS.items()
+                      if name in e.name), "other")
+        a = by_name.setdefault(label, {"launches": 0, "ms": 0.0})
+        a["launches"] += 1
+        a["ms"] += (e.time_range.end - e.time_range.start) / 1e3
+    missing = [k for k in KERNEL_LABELS.values() if k not in by_name]
+    if missing:
+        raise AssertionError(f"the trace names no kernel of {missing}")
+    busy = _union_us(spans)
+    d0 = min(e.time_range.start for e in dev)
+    d1 = max(e.time_range.end for e in dev)
+    out = {"sorts": PROFILE_SORTS, "n": n, "window_ms": (w1 - w0) / 1e3,
+           "busy_share": busy / (w1 - w0),
+           "busy_share_first_to_last_device_event": busy / (d1 - d0),
+           "kernels": by_name, "trace_files": files}
+    log("[profile]", json.dumps(out))
+    return out
+
+
 def _path_launches(config: SortConfig | None, kernels, oracles) -> dict:
     """Drive one backend's main path with the counters zeroed just before
     and read just after; every kernel of `kernels` must have launched."""
@@ -1404,6 +1624,12 @@ def main() -> int:
     dist_launches, slot_bufs = dist_phase()
     launches["local_gated"] = dist_launches["local_gated"]
     per["local_gated"] = merge_times(slot_bufs, card)["local_gated"]
+    del slot_bufs
+
+    stages_phase()
+    adaptive_phase(card=card)
+    sweep_phase(card)
+    profile_phase()
 
     def figures(p):
         return {"ms": p["ms"] / p["n"], "plain_ms": p["plain"] / p["nplain"],

@@ -24,7 +24,8 @@ from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
-from vulkan_radix_sort_tpu_torch.utils import datagen
+from vulkan_radix_sort_tpu_torch.bench import harness
+from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
 
 
 @pytest.fixture
@@ -470,3 +471,116 @@ def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
     np.testing.assert_array_equal(
         got.cpu().numpy()[:n - 7].view(np.uint64),
         k[:n - 7][np.argsort(u[:n - 7], kind="stable")].view(np.uint64))
+
+
+NET_LAUNCHES = ("chunk", "fused", "cross", "local")
+
+STAGE_SORTS = {  # carry -> (stage_times call, the sort it times)
+    "keys": (lambda k, v: tbit.stage_times(k, iters=3),
+             lambda k, v: tbit.sort_u32(k)),
+    "stable": (lambda k, v: tbit.stage_times_pairs(k, v, iters=3),
+               lambda k, v: tbit.sort_pairs_u32(k, v)),
+    "pairs": (lambda k, v: tbit.stage_times_pairs(k, v, iters=3,
+                                                  stable=False),
+              lambda k, v: tbit.sort_pairs_u32(k, v, stable=False)),
+    "w3": (lambda k, v: tbit.stage_times_w64(k, v, v, iters=3,
+                                             stable=False),
+           lambda k, v: tbit.sort_pairs_w64(k, v, v, stable=False)),
+    "w4_big": (lambda k, v: tbit.stage_times_w64(k, v, v, iters=3),
+               lambda k, v: tbit.sort_pairs_w64(k, v, v)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STAGE_SORTS))
+def test_cuda_stage_times(cuda_device, name):
+    """stage_times* at 2^20 on the card: every launch timed, the stage sum
+    positive, and the launch list as long as one sort's launch counters."""
+    n = 1 << 20
+    k = torch.from_numpy(_u32(n, 30)).to(cuda_device)
+    v = torch.from_numpy(_u32(n, 31)).to(cuda_device)
+    stage_times, sort = STAGE_SORTS[name]
+    st = stage_times(k, v)
+    bk.reset_launches()
+    sort(k, v)
+    torch.cuda.synchronize()
+    assert len(st["kernels"]) == sum(bk.launches[x] for x in NET_LAUNCHES)
+    assert st["mode"] == name
+    assert all(t > 0 for _, t in st["kernels"])
+    assert st["chunk"] > 0 and st["chunk"] + st["cross"] + st["local"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("backend", ["network", "radix", "reference"])
+def test_cuda_sort_timed(cuda_device, backend):
+    n = 1 << 20
+    s = vrs.Sorter(n, config=SortConfig(backend=backend))
+    k = torch.from_numpy(_u32(n, 32)).to(cuda_device)
+    t = s.sort_timed(k, iters=3)
+    assert t.total_ns > 0 and t.cpu_ns > 0
+    tk = s.sort_key_value_timed(k, k, iters=3)
+    assert tk.total_ns > 0
+    if backend == "reference":
+        assert t.upsweep_ns == t.spine_ns == t.downsweep_ns == 0
+        return
+    assert t.upsweep_ns > 0 and t.downsweep_ns > 0
+    if backend == "network":
+        assert t.extra["mode"] == "keys" and tk.extra["mode"] == "stable"
+    report = profiling.stage_report(k, SortConfig(backend=backend), iters=2)
+    assert report.startswith(f"backend={backend} n={n}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", ["sorted", "reverse", "constant", "uniform"])
+def test_cuda_adaptive_network(cuda_device, dist):
+    """Adaptive network sorts on the card against numpy: no network
+    launch on the fast paths, launches on the others (uniform keys, and
+    reverse keys in the key-value sort, which takes no flip)."""
+    n = (1 << 20) + 3
+    s = vrs.Sorter(n, config=SortConfig(adaptive=True))
+    k = datagen.generate_keys(n, seed=33, distribution=dist)
+    dk = torch.from_numpy(k).to(cuda_device)
+    bk.reset_launches()
+    got = s.sort(dk).cpu().numpy()
+    np.testing.assert_array_equal(got, np.sort(k))
+    launched = sum(bk.launches[x] for x in NET_LAUNCHES)
+    assert (launched == 0) == (dist != "uniform")
+    v = datagen.generate_values(n, seed=34)
+    bk.reset_launches()
+    gk, gv = s.sort_key_value(dk, torch.from_numpy(v).to(cuda_device))
+    order = np.argsort(k, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
+    launched = sum(bk.launches[x] for x in NET_LAUNCHES)
+    assert (launched == 0) == (dist in ("sorted", "constant"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["network", "radix", "reference"])
+def test_cuda_harness_measure(cuda_device, name):
+    b = harness.make_backend(name)
+    harness.check_correctness(b, 1 << 16, nonstable=True)
+    for sort in ("keys", "kv", "kvns"):
+        r = harness.measure(b, 1 << 16, sort, iters=3)
+        assert r.backend == name and r.gpu_ms > 0 and r.cpu_ms > 0
+
+
+@pytest.mark.cuda
+def test_cuda_profiling_trace(cuda_device, tmp_path):
+    s = vrs.Sorter(1 << 20)
+    k = torch.from_numpy(_u32(1 << 20, 35)).to(cuda_device)
+    s.sort(k)
+    with profiling.trace(str(tmp_path)) as prof:
+        s.sort(k)
+    (trace,) = tmp_path.iterdir()
+    assert "chunk_kernel" in trace.read_text()
+    assert any("chunk_kernel" in e.key for e in prof.key_averages())
+
+
+@pytest.mark.cuda
+def test_cuda_launch_timer_records_events(cuda_device):
+    k = torch.from_numpy(_u32(1 << 18, 36)).to(cuda_device)
+    with timing.LaunchTimer() as t:
+        tbit.sort_u32(k)
+    secs = t.seconds()
+    assert len(secs) == len(t.records) > 0 and all(x > 0 for x in secs)

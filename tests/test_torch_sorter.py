@@ -178,8 +178,8 @@ def test_config_from_jax():
         assert rad == SortConfig(backend="radix")
         assert (rad.block, rad.digit_bits, rad.radix, rad.num_passes) == (
             RADIX_BLOCK, 8, 256, 4)
-    with pytest.raises(NotImplementedError):
-        config_from_jax(dataclasses.asdict(jvrs.SortConfig(adaptive=True)))
+    assert config_from_jax(dataclasses.asdict(
+        jvrs.SortConfig(adaptive=True))) == SortConfig(adaptive=True)
     with pytest.raises(TypeError):
         config_from_jax({"bogus": 1})
 
@@ -194,8 +194,6 @@ def test_refusals():
                 dict(block=256), dict(block=1 << 15)):
         with pytest.raises(ValueError):
             SortConfig(backend="radix", **bad)
-    with pytest.raises(NotImplementedError):
-        SortConfig(adaptive=True)
     with pytest.raises(ValueError):
         SortConfig(backend="xla")
     with pytest.raises(ValueError):
@@ -209,9 +207,10 @@ def test_refusals():
         vrs.Sorter(16, key_dtype=torch.int16, device="cpu")
     s = vrs.Sorter(16, device="cpu")
     keys = torch.zeros(8, dtype=torch.int32).view(torch.uint32)
-    with pytest.raises(NotImplementedError):
+    # timing is on the card only: a CPU sorter refuses to time the CPU
+    with pytest.raises(RuntimeError, match="CUDA device"):
         s.sort_timed(keys)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(RuntimeError, match="CUDA device"):
         s.sort_key_value_timed(keys, keys)
     with pytest.raises(ValueError):  # another device is refused, not moved
         s.sort(keys.to("meta"))

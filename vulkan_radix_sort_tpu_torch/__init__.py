@@ -13,7 +13,11 @@ CUDA device unless asked for the CPU, where each kernel's plain PyTorch
 version runs instead. uint64, int64 and float64 keys sort the same ways
 on the network (as (hi, lo) uint32 words, key-value in the three-word
 carries of `csrc/network_w64.cu`) and the reference backend; the radix
-backend refuses them.
+backend refuses them. `SortConfig(adaptive=True)` answers sorted,
+reverse-sorted and constant inputs without the engine. Measurement:
+`Sorter.sort_timed` / `sort_key_value_timed` (per-stage device times),
+`utils.profiling` (a torch.profiler trace), and the bench harness,
+`python -m vulkan_radix_sort_tpu_torch.bench <backend>`.
 """
 
 from .config import SortConfig, config_from_jax, default_config

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import os
 
 # Dynamic shared memory one H100 thread block may use (227 KB of the SM's
 # 256 KB; above 48 KB only after cudaFuncSetAttribute).
@@ -98,7 +99,11 @@ class SortConfig:
         kernels; 'pallas' is an alias, stored as 'radix'), 'reference'
         (torch.sort, the counterpart of the JAX package's 'xla'), or
         'auto' (network on a CUDA device, reference on the CPU).
-    adaptive: the JAX package's sorted-input fast paths; not ported yet.
+    adaptive: the JAX package's sorted-input fast paths. Sorts without
+        `count=` first check the keys' order in one pass and one host
+        read (a sync with the card): non-decreasing keys come back as a
+        copy, and keys-only sorts answer non-increasing keys with a flip;
+        other inputs then run the engine.
     """
 
     chunk: int | None = None
@@ -112,8 +117,6 @@ class SortConfig:
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {self.backend!r}")
         object.__setattr__(self, "backend", backend)
-        if self.adaptive:
-            raise NotImplementedError("adaptive fast paths are not ported yet")
         c = self.chunk
         if c is not None and (c < MIN_CHUNK or c & (c - 1)):
             raise ValueError(f"chunk must be a power of two >= {MIN_CHUNK}")
@@ -147,7 +150,11 @@ class SortConfig:
 
 @functools.cache
 def default_config() -> SortConfig:
-    return SortConfig()
+    """The configuration of a sorter given none: the defaults, with
+    `adaptive` set by the environment variable VRS_ADAPTIVE=1 as in the
+    JAX package. The variable is read once, at the first call in the
+    process (functools.cache): a later change to it is not seen."""
+    return SortConfig(adaptive=os.environ.get("VRS_ADAPTIVE", "0") == "1")
 
 
 def config_from_jax(fields: dict) -> SortConfig:

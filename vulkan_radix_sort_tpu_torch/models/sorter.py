@@ -25,12 +25,14 @@ process on first use (see `_build`).
 
 from __future__ import annotations
 
+import statistics
+import time
+
 import torch
 
 from ..config import SortConfig, default_config, round_up
 from ..ops import bitonic, bitops, radix, reference
-
-_NOT_YET = "is not ported yet"
+from ..utils.timing import StageTimes, time_fn
 
 
 def _pick_backend(cfg: SortConfig, device: torch.device) -> str:
@@ -41,6 +43,53 @@ def _pick_backend(cfg: SortConfig, device: torch.device) -> str:
     if cfg.backend != "auto":
         return cfg.backend
     return "network" if device.type == "cuda" else "reference"
+
+
+def _order_view(u: torch.Tensor) -> torch.Tensor:
+    """A signed view of encoded keys (uint32 or uint64) with their order:
+    the sign bit flipped. torch has no `<` for uint32 or uint64."""
+    if u.dtype == torch.uint64:
+        return u.view(torch.int64) ^ -(1 << 63)
+    return u.view(torch.int32) ^ -(1 << 31)
+
+
+def _flip(u: torch.Tensor) -> torch.Tensor:
+    """u reversed, through its signed bit pattern (uint flip has no
+    kernel)."""
+    signed = torch.int64 if u.dtype == torch.uint64 else torch.int32
+    return u.view(signed).flip(0).view(u.dtype)
+
+
+def _adaptive_sort(u: torch.Tensor, slow):
+    """Opt-in adaptive fast path (SortConfig.adaptive) of a keys sort, as
+    the JAX package's: one detection pass over the encoded keys finds
+    already-sorted, reverse-sorted and constant inputs and answers them
+    with a copy or a flip; anything else goes to `slow`. Equal keys are
+    bitwise interchangeable, so a flip of non-increasing keys is their
+    ascending sort. The branch is one host read of the two flags (a sync
+    with the card); both branches are never computed."""
+    if u.numel() < 2:
+        return u.clone()
+    s = _order_view(u)
+    nondec, noninc = torch.stack(((s[1:] >= s[:-1]).all(),
+                                  (s[1:] <= s[:-1]).all())).tolist()
+    if nondec:
+        return u.clone()
+    if noninc:
+        return _flip(u)
+    return slow(u)
+
+
+def _adaptive_sort_pairs(u: torch.Tensor, v: torch.Tensor, slow):
+    """The key-value fast path: identity copies on non-decreasing keys,
+    the stable answer and a valid non-stable one. Reverse-sorted keys go
+    to `slow`: a flip would reverse the order of equal keys."""
+    if u.numel() < 2:
+        return u.clone(), v.clone()
+    s = _order_view(u)
+    if (s[1:] >= s[:-1]).all().item():
+        return u.clone(), v.clone()
+    return slow(u, v)
 
 
 def _resolve_device(device) -> torch.device:
@@ -137,19 +186,16 @@ class Sorter:
     def sort(self, keys: torch.Tensor, count=None) -> torch.Tensor:
         """Ascending sort. `count` (int or 0-d device tensor) sorts only the
         prefix and leaves the tail untouched: the reference's indirect
-        path."""
+        path. With SortConfig.adaptive and no `count`, sorted,
+        reverse-sorted and constant keys skip the engine."""
         self._check(keys)
         u = self._encode(keys)
+        if count is None:
+            slow = self._sort64 if self.wide else self._sort32
+            return self._decode(_adaptive_sort(u, slow) if self.config.adaptive
+                                else slow(u))
         if self.wide:
             return self._decode(self._sort64(u, count))
-        if count is None:
-            if self.backend == "network":
-                out = bitonic.sort_u32(u, chunk=self.config.chunk_keys)
-            elif self.backend == "radix":
-                out = radix.sort_u32(u, config=self.config)
-            else:
-                out = reference.sort_keys(u)
-            return self._decode(out)
         cnt = bitonic.count_tensor(count, self.device)
         if self.backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
@@ -164,6 +210,25 @@ class Sorter:
             k = radix.sort_u32(masked, config=self.config)
         return self._decode(bitops.select_u32(live, k, u))
 
+    def _sort32(self, u: torch.Tensor) -> torch.Tensor:
+        """Keys-only sort of encoded uint32 keys on the backend."""
+        if self.backend == "network":
+            return bitonic.sort_u32(u, chunk=self.config.chunk_keys)
+        if self.backend == "radix":
+            return radix.sort_u32(u, config=self.config)
+        return reference.sort_keys(u)
+
+    def _sort_pairs32(self, u: torch.Tensor, values: torch.Tensor,
+                      stable: bool):
+        """Key-value sort of encoded uint32 keys on the backend."""
+        if self.backend == "network":
+            return bitonic.sort_pairs_u32(u, values,
+                                          chunk=self.config.chunk_carry,
+                                          stable=stable)
+        if self.backend == "radix":
+            return radix.sort_pairs_u32(u, values, config=self.config)
+        return reference.sort_pairs(u, values)
+
     def sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
                        count=None, stable: bool = True):
         """Ascending key-value sort; values ride as a separate uint32 buffer.
@@ -172,21 +237,22 @@ class Sorter:
         stable=False lets the network compare (key, value) and drop the
         index carry: equal keys then come out by ascending value. The
         radix and reference backends are stable either way, which is also
-        a valid answer to stable=False.
+        a valid answer to stable=False. With SortConfig.adaptive, keys
+        already in non-decreasing order come back as they are (with
+        copies), the stable answer and a valid non-stable one.
         """
         self._check(keys, values)
         u = self._encode(keys)
+        if count is None:
+            def slow(u, v):
+                if self.wide:
+                    return self._sort_pairs64(u, v, None, stable)
+                return self._sort_pairs32(u, v, stable)
+            k, v = (_adaptive_sort_pairs(u, values, slow)
+                    if self.config.adaptive else slow(u, values))
+            return self._decode(k), v
         if self.wide:
             k, v = self._sort_pairs64(u, values, count, stable)
-            return self._decode(k), v
-        if count is None:
-            if self.backend == "network":
-                k, v = bitonic.sort_pairs_u32(
-                    u, values, chunk=self.config.chunk_carry, stable=stable)
-            elif self.backend == "radix":
-                k, v = radix.sort_pairs_u32(u, values, config=self.config)
-            else:
-                k, v = reference.sort_pairs(u, values)
             return self._decode(k), v
         cnt = bitonic.count_tensor(count, self.device)
         if self.backend == "reference":
@@ -213,7 +279,7 @@ class Sorter:
     # -- 64-bit keys: (hi, lo) words (JAX sorter.py:234-262, 287-315,
     # 340-367, 404-437) ----------------------------------------------------
 
-    def _sort64(self, u: torch.Tensor, count) -> torch.Tensor:
+    def _sort64(self, u: torch.Tensor, count=None) -> torch.Tensor:
         """Keys-only sort of encoded uint64 keys: on the network the (hi,
         lo) words ride the non-stable (k, v) carry, whose order is theirs.
         With `count`, keys past it are masked to the u64 maximum: as for
@@ -260,12 +326,85 @@ class Sorter:
         return (bitops.select_u64(live, bitops.merge_u64(hi, lo), u),
                 bitops.select_u32(live, v, values))
 
-    def sort_timed(self, keys, iters: int = 10):
-        raise NotImplementedError(f"per-stage timing {_NOT_YET}")
+    # -- timing queries (analog of the timestamps, h.in:39-50) -------------
 
-    def sort_key_value_timed(self, keys, values, stable: bool = True,
-                             iters: int = 10):
-        raise NotImplementedError(f"per-stage timing {_NOT_YET}")
+    def _totals(self, fn, args, iters: int) -> StageTimes:
+        """total_ns: device time per call (CUDA events, `time_fn`);
+        cpu_ns: the median host wall clock of a call and a synchronize,
+        the reference's submit-to-fence time (vulkan_benchmark.cc:299-302).
+        Every call sorts the same input."""
+        if self.device.type != "cuda":
+            raise RuntimeError("sort_timed and sort_key_value_timed measure "
+                               "device time: use a sorter on a CUDA device")
+        t = StageTimes()
+        t.total_ns = time_fn(fn, *args, iters=iters) * 1e9
+        walls = []
+        for _ in range(max(1, iters)):
+            torch.cuda.synchronize(self.device)
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize(self.device)
+            walls.append(time.perf_counter() - t0)
+        t.cpu_ns = statistics.median(walls) * 1e9
+        return t
+
+    @staticmethod
+    def _network_stages(t: StageTimes, stage: dict) -> StageTimes:
+        # chunk sorts play the upsweep's part (per-block work), the cross
+        # passes the spine's (movement between blocks), the local passes
+        # the downsweep's
+        t.upsweep_ns = stage["chunk"] * 1e9
+        t.spine_ns = stage["cross"] * 1e9
+        t.downsweep_ns = stage["local"] * 1e9
+        t.extra = stage
+        return t
+
+    def sort_timed(self, keys: torch.Tensor, iters: int = 10) -> StageTimes:
+        """Times of `sort(keys)` on the card: totals, and on the network
+        and radix backends per stage (`bitonic.stage_times*`,
+        `radix.stage_times`, whose dict lands in `extra`). The reference
+        backend fills the totals only. A CPU sorter raises: nothing here
+        times the CPU."""
+        self._check(keys)
+        t = self._totals(self.sort, (keys,), iters)
+        u = self._encode(keys)
+        if self.backend == "radix":
+            stage = radix.stage_times(u, self.config, iters=iters)
+            t.upsweep_ns = stage["upsweep"] * 1e9
+            t.spine_ns = stage["spine"] * 1e9
+            t.downsweep_ns = stage["downsweep"] * 1e9
+            t.extra = stage
+        elif self.backend == "network":
+            stage = (bitonic.stage_times_w64(*bitops.split_u64(u),
+                                             chunk=self.config.chunk_carry,
+                                             iters=iters)
+                     if self.wide else
+                     bitonic.stage_times(u, chunk=self.config.chunk_keys,
+                                         iters=iters))
+            self._network_stages(t, stage)
+        return t
+
+    def sort_key_value_timed(self, keys: torch.Tensor, values: torch.Tensor,
+                             stable: bool = True,
+                             iters: int = 10) -> StageTimes:
+        """`sort_timed` for `sort_key_value(keys, values, stable=stable)`;
+        per stage on the network only (the radix backend times a keys
+        pass), `extra["mode"]` naming the carry that ran."""
+        self._check(keys, values)
+        t = self._totals(lambda k, v: self.sort_key_value(k, v,
+                                                          stable=stable),
+                         (keys, values), iters)
+        if self.backend != "network":
+            return t
+        u = self._encode(keys)
+        chunk = self.config.chunk_carry
+        stage = (bitonic.stage_times_w64(*bitops.split_u64(u), values,
+                                         chunk=chunk, iters=iters,
+                                         stable=stable)
+                 if self.wide else
+                 bitonic.stage_times_pairs(u, values, chunk=chunk,
+                                           iters=iters, stable=stable))
+        return self._network_stages(t, stage)
 
 
 def create_sorter(max_n: int, key_dtype=torch.uint32, config=None,

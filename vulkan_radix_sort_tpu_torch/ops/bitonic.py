@@ -22,6 +22,10 @@ rules are kept exactly: the grid covers only the genuine prefix, and after
 the chunk phase local passes are clipped at the round's 2^r-chunk group
 granularity, never per chunk (see `_sort_padded`).
 
+`stage_times*` time each launch of the real `_sort_padded` with CUDA
+events (`utils.timing.LaunchTimer`): the per-stage split of
+`Sorter.sort_timed` and the bench's `--stages`.
+
 Carries: keys (k); stable key-value (k, idx, v) with the original index as
 the tiebreak; non-stable key-value (k, v) compared lexicographically, so
 equal keys come out by ascending value. 64-bit keys come as (hi, lo) words:
@@ -37,6 +41,7 @@ from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
 from . import bitonic_kernels as bk
 from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, CROSS_W, log2
 from .bitops import check_u32, pad_u32
+from ..utils import timing
 
 # Elements a fused-rounds group may hold, on top of each carry's
 # shared-memory cap. Tests lower it to pin the unfused cross + local path.
@@ -175,13 +180,19 @@ def sort_u32(keys: torch.Tensor, count=None, *, chunk: int | None = None):
     0xFFFFFFFF already (the sorter's indirect path does); the gate only
     skips work. Returns a new tensor; `keys` is not modified.
     """
+    arrs, mode, np2, C, n, cnt = _keys_carry(keys, count, chunk)
+    if n:
+        _sort_padded(arrs, mode, np2, C, n, cnt)
+    return arrs[0][:n]
+
+
+def _keys_carry(keys, count, chunk):
+    """The padded buffers of a keys sort: (arrs, mode, np2, C, n, count)."""
     check_u32(keys)
     n = keys.numel()
     np2, C = _plan(n, _checked_chunk(chunk or CHUNK_KEYS, KEYS))
-    buf = pad_u32(keys, np2, 0xFFFFFFFF)
-    if n:
-        _sort_padded([buf], KEYS, np2, C, n, count_tensor(count, keys.device))
-    return buf[:n]
+    return ([pad_u32(keys, np2, 0xFFFFFFFF)], KEYS, np2, C, n,
+            count_tensor(count, keys.device))
 
 
 def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
@@ -194,6 +205,16 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
     ascending value. `count` as in `sort_u32`; with stable=False the caller
     masks values[count:] to 0xFFFFFFFF too.
     """
+    arrs, mode, np2, C, n, cnt = _pairs_carry(keys, values, count, chunk,
+                                              stable)
+    if n:
+        _sort_padded(arrs, mode, np2, C, n, cnt)
+    return arrs[0][:n], arrs[-1][:n]
+
+
+def _pairs_carry(keys, values, count, chunk, stable):
+    """The padded buffers of a 32-bit key-value sort: (arrs, mode, np2, C,
+    n, count)."""
     check_u32(keys, values)
     n = keys.numel()
     mode = STABLE if stable else PAIRS
@@ -205,9 +226,7 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, count=None, *,
                 pad_u32(values, np2, 0)]
     else:
         arrs = [k, pad_u32(values, np2, 0xFFFFFFFF)]
-    if n:
-        _sort_padded(arrs, mode, np2, C, n, cnt)
-    return arrs[0][:n], arrs[-1][:n]
+    return arrs, mode, np2, C, n, cnt
 
 
 def sort_pairs_w64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor,
@@ -226,6 +245,16 @@ def sort_pairs_w64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor,
     the keys past it to the maximum (and, with stable=False, the values).
     Returns new (hi, lo, values) tensors.
     """
+    arrs, mode, np2, C, n, cnt = _w64_carry(hi, lo, values, count, chunk,
+                                            stable)
+    if n:
+        _sort_padded(arrs, mode, np2, C, n, cnt)
+    return arrs[0][:n], arrs[1][:n], arrs[-1][:n]
+
+
+def _w64_carry(hi, lo, values, count, chunk, stable):
+    """The padded buffers of a 64-bit key-value sort: (arrs, mode, np2, C,
+    n, count)."""
     check_u32(hi, lo, values)
     n = hi.numel()
     mode = W4_BIG if stable else W3
@@ -236,9 +265,112 @@ def sort_pairs_w64(hi: torch.Tensor, lo: torch.Tensor, values: torch.Tensor,
         arrs += [_stable_idx(n, np2, hi.device, cnt), pad_u32(values, np2, 0)]
     else:
         arrs.append(pad_u32(values, np2, 0xFFFFFFFF))
-    if n:
-        _sort_padded(arrs, mode, np2, C, n, cnt)
-    return arrs[0][:n], arrs[1][:n], arrs[-1][:n]
+    return arrs, mode, np2, C, n, cnt
+
+
+# -- per-stage timing ---------------------------------------------------------
+
+# `stage_times*` report the carry that ran as `mode`, a name of the port's
+# carries. The JAX package's mode names map onto them so: keys -> keys;
+# packed and stable (its two stable kv carries) -> stable; pairs
+# (non-stable kv, and 64-bit keys) -> pairs; w3 -> w3; w4 and w4_big (its
+# two stable 64-bit kv carries) -> w4_big.
+JAX_MODES = {"keys": "keys", "packed": "stable", "stable": "stable",
+             "pairs": "pairs", "w3": "w3", "w4": "w4_big",
+             "w4_big": "w4_big"}
+
+
+def _kernel_name(launch: bk.Launch) -> str:
+    a = launch.cargs  # (lc,), (lc, r), (lc, r_lo, r_hi), (lc, r, t_lo, span)
+    if launch.kernel == "chunk":
+        return f"chunk[p1-{a[0]}]"
+    if launch.kernel == "fused":
+        return f"fused[r{a[1]}-{a[2]}]"
+    if launch.kernel == "cross":
+        return f"cross[r{a[1]} t{a[2]}-{a[2] + a[3] - 1}]"
+    return f"{launch.kernel}[r{a[1]}]"
+
+
+def _stage_times(arrs, mode, np2: int, C: int, n: int, iters: int) -> dict:
+    """Seconds per launch of the real `_sort_padded` on the padded buffers
+    `arrs`: the mean over `iters` sorts of fresh copies, each launch
+    bracketed by CUDA events (`timing.LaunchTimer`), after one sort
+    untimed. A fused launch runs both cross and local stages; its time
+    is split between the two by stage count, as in the JAX package. On
+    CPU buffers the launches run their plain versions once and every
+    time is None: the launch plan without a clock."""
+    cuda = arrs[0].device.type == "cuda"
+    runs = max(1, iters) if cuda else 1
+    # the copies go into buffers allocated once: an allocation inside the
+    # timed sorts may wait on the card and open a gap inside a bracket
+    work = [torch.empty_like(a) for a in arrs]
+
+    def sort():
+        for w, a in zip(work, arrs):
+            w.copy_(a)
+        _sort_padded(work, mode, np2, C, n)
+    if cuda:  # builds the kernels, and no bracket waits on the host
+        sort()
+    with timing.LaunchTimer() as timer:
+        for _ in range(runs):
+            sort()
+    secs = timer.seconds()
+    per = len(secs) // runs
+    lc = log2(C)
+    totals = dict.fromkeys(("chunk", "cross", "local"), 0.0 if cuda else None)
+    kernels = []
+    for i, rec in enumerate(timer.records[:per]):
+        launch = rec["launch"]
+        t = sum(secs[i::per]) / runs if cuda else None
+        kernels.append((_kernel_name(launch), t))
+        if not cuda:
+            continue
+        if launch.kernel == "fused":
+            r_lo, r_hi = launch.cargs[1:]
+            cross = sum(range(r_lo, r_hi + 1))
+            local = (r_hi - r_lo + 1) * lc
+            totals["cross"] += t * cross / (cross + local)
+            totals["local"] += t * local / (cross + local)
+        else:
+            totals[launch.kernel] += t
+    return {**totals, "rounds": log2(np2 // C), "mode": mode.name,
+            "kernels": kernels}
+
+
+def stage_times(keys: torch.Tensor, chunk: int | None = None,
+                iters: int = 10) -> dict:
+    """Per-stage seconds of a keys sort: the analog of the reference's
+    timestamps (h.in:39-50), as `vulkan_radix_sort_tpu.ops.bitonic.
+    stage_times` returns them: `chunk` (K1), `cross` (K3, and K2's share),
+    `local` (K4, and K2's share), `rounds` (merge rounds), `mode` (the
+    carry, see JAX_MODES) and `kernels`, one (name, seconds) per launch of
+    one sort in launch order. Times are taken on the card only; see
+    `_stage_times` for CPU tensors."""
+    arrs, mode, np2, C, n, _ = _keys_carry(keys, None, chunk)
+    return _stage_times(arrs, mode, np2, C, n, iters)
+
+
+def stage_times_pairs(keys: torch.Tensor, values: torch.Tensor,
+                      chunk: int | None = None, iters: int = 10,
+                      stable: bool = True) -> dict:
+    """`stage_times` of a 32-bit key-value sort: the stable carry, or with
+    stable=False the pairs carry."""
+    arrs, mode, np2, C, n, _ = _pairs_carry(keys, values, None, chunk,
+                                            stable)
+    return _stage_times(arrs, mode, np2, C, n, iters)
+
+
+def stage_times_w64(hi: torch.Tensor, lo: torch.Tensor, values=None,
+                    chunk: int | None = None, iters: int = 10,
+                    stable: bool = True) -> dict:
+    """`stage_times` of a 64-bit sort given as (hi, lo) words: with
+    values=None the keys-only sort (the pairs carry over the words),
+    otherwise key-value in W4_BIG (stable) or W3."""
+    if values is None:
+        return stage_times_pairs(hi, lo, chunk, iters, stable=False)
+    arrs, mode, np2, C, n, _ = _w64_carry(hi, lo, values, None, chunk,
+                                          stable)
+    return _stage_times(arrs, mode, np2, C, n, iters)
 
 
 # -- slot merge: finish a sort whose input is already sorted runs ------------

@@ -29,7 +29,9 @@ the slot merge went through it.
 The wrapper (`chunk`, `fused`, `cross`, `local`, `local_gated`, all
 through `run`) runs
 the plain version when the buffers lie on the CPU, and otherwise launches
-the CUDA kernel or raises; it counts each launch in `launches`. The plain
+the CUDA kernel or raises; it counts each launch in `launches`, and an
+active `utils.timing.LaunchTimer` records it (with CUDA events on a card,
+by name alone on the CPU). The plain
 version (`run_plain`, on the same `spec`) applies the same compare-exchange
 stages with PyTorch tensor operations, widened to int64 where uint32 has no
 comparisons. It serves the CPU tests and the kernel-versus-plain check on
@@ -43,6 +45,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils import timing
 from ..config import MIN_CHUNK, smem_elems
 from .bitops import check_aligned, narrow_u32, widen_u32
 
@@ -270,8 +273,6 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
     dev = arrs[0].device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    if nunits == 0:
-        return
     check_aligned(arrs)
     lib = _build.library()
     ptrs = [a.data_ptr() for a in arrs] + [None] * (4 - len(arrs))
@@ -292,12 +293,17 @@ def counters(launch: Launch, valid) -> list[str]:
 
 
 def run(launch: Launch, arrs, mode: Mode, nunits: int, valid=None) -> None:
-    """Wrapper: the plain version for CPU buffers, the kernel for CUDA."""
+    """Wrapper: the plain version for CPU buffers, the kernel for CUDA.
+    Zero units launch nothing; any other call is one launch, recorded by
+    an active `timing.LaunchTimer`."""
     _check(launch, arrs, mode, nunits, valid)
-    if arrs[0].device.type == "cpu":
-        _plain(launch, arrs, mode, nunits, valid)
-    else:
-        _launch(launch, arrs, mode, nunits, valid)
+    if nunits == 0:
+        return
+    body = _plain if arrs[0].device.type == "cpu" else _launch
+    timing.launch(lambda: body(launch, arrs, mode, nunits, valid),
+                  counters(launch, valid), arrs[0].device, launch=launch,
+                  mode=mode, numel=arrs[0].numel(), nunits=nunits,
+                  valid=valid)
 
 
 def run_plain(launch: Launch, arrs, mode: Mode, nunits: int,

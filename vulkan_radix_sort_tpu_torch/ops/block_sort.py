@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import timing
 from ..config import RADIX_THREADS, SortConfig
 from .bitops import check_aligned, widen_u32
 
@@ -117,6 +118,12 @@ def block_sort(keys, values=None, *, shift: int, config: SortConfig,
     hist), hist being (nblocks, radix) int32 digit counts per block.
     """
     _check(keys, values, shift, config, key_value)
-    if keys.device.type == "cpu":
-        return _plain(keys, values, shift, config, key_value)
-    return _launch(keys, values, shift, config, key_value)
+    body = _plain if keys.device.type == "cpu" else _launch
+
+    def run():
+        return body(keys, values, shift, config, key_value)
+    if not keys.numel():
+        return run()
+    return timing.launch(run, ["block_sort"], keys.device,
+                         numel=keys.numel(), shift=shift, config=config,
+                         key_value=key_value)

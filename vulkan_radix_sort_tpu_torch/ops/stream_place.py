@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils import timing
 from ..config import SortConfig
 
 # Launches of the CUDA kernel since the last reset.
@@ -127,6 +128,14 @@ def stream_place(y, hist, g_row, values=None, *, config: SortConfig,
     """
     _check(y, hist, g_row, values, config, key_value)
     if y.device.type == "cpu":
-        return _plain(y, hist, g_row, values, key_value)
-    return _launch(y, hist, block_offsets(hist, g_row), values, config,
-                   key_value)
+        def run():
+            return _plain(y, hist, g_row, values, key_value)
+    else:
+        offsets = block_offsets(hist, g_row)  # outside the launch's record
+
+        def run():
+            return _launch(y, hist, offsets, values, config, key_value)
+    if not y.numel():
+        return run()
+    return timing.launch(run, ["place"], y.device, numel=y.numel(),
+                         config=config, key_value=key_value)
