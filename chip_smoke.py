@@ -39,7 +39,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      genuine 0xFFFFFFFF keys), keys and stable carries: every launch of
      the gated local kernel (K6) in the merge bitwise equal to its plain
      version, and merge_slots_u32 / merge_slots_pairs (prearranged both
-     ways) bitwise equal to numpy;
+     ways) bitwise equal to numpy; then the overlap path's keys half merge
+     of two 2^25-key halves with fill tails (np2 = 2^26, carry chunk):
+     every K3 and K4 launch bitwise equal to its plain version, the
+     merged keys to numpy;
   7. the distributed path: a world of 4 gloo ranks sharing cuda:0 with
      2^25 keys each (2^27 in all) sorts through sort_sharded /
      sort_pairs_sharded (keys, stable kv uniform and few-distinct, ragged
@@ -48,6 +51,20 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      its launch counters just before each sort and reads them just after:
      the merge runs must launch cross and the gated local kernel, the
      fallback none of the latter. Wall time per phase of the world;
+ 7b. overlap, the 2-D tier and the reports: a second world of 4 gloo
+     ranks on cuda:0 at 2^25 keys each: overlap=True on the 1-D world
+     (keys uniform and stable kv few-distinct; then with merge_resort=True,
+     keys and stable kv), then on make_mesh_2d(2, 2) keys uniform, stable
+     kv few-distinct, ragged keys with count=, constant keys (the slot
+     fallback), overlap=True keys and stable kv, and dcn_slack=1 on skewed
+     keys, which must raise ValueError on every rank; each answer bitwise
+     against numpy, each case's launches checked (chunk once per local
+     sort; the gated local kernel iff a slot merge runs, as each case
+     states or, for stable kv few-distinct, as numpy's size matrix says;
+     the keys half merge's K3 and K4 beyond the local sorts'); then
+     phase_report (with and without overlap), dcn_report on the 2 x 2
+     mesh and scaling_report over 1, 2 and 4 ranks, printed as
+     `[scaling]` lines (4 ranks sharing one card: no scaling figure);
   8. merge times, alone in this process on rank 0's received slot
      buffers: the merge gated by the slot sizes, the same merge ungated,
      and the full network re-sort the fallback runs, keys and stable kv;
@@ -98,6 +115,7 @@ from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
+from vulkan_radix_sort_tpu_torch.parallel import scaling
 from vulkan_radix_sort_tpu_torch.bench import harness
 from vulkan_radix_sort_tpu_torch.models import sorter as sorter_mod
 from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
@@ -987,6 +1005,35 @@ def slot_buffer(runs, slot: int, fill: int, prearranged: bool) -> np.ndarray:
     return buf.reshape(-1)
 
 
+def _held_run(kernels, device, tally: dict, errs: dict):
+    """A stand-in for `bk.run`: each launch of one of `kernels` runs its
+    plain version too, on a copy of its inputs, and must give the same
+    bits; tally[kernel] counts the launches so held, errs[kernel] keeps
+    their max |err|. Other launches run as they are."""
+    real_run = bk.run
+
+    def run(launch, arrs, mode, nunits, valid=None):
+        if launch.kernel not in kernels:
+            return real_run(launch, arrs, mode, nunits, valid)
+        want = [a.clone() for a in arrs]
+        real_run(launch, arrs, mode, nunits, valid)
+        bk.run_plain(launch, want, mode, nunits, valid)
+        sync(device)
+        e = _max_abs_err(arrs, want)
+        live = ("" if valid is None else
+                f" live={int(valid[:nunits].sum())}/{nunits}")
+        log(f"[kernel] n={arrs[0].numel()} {launch.kernel} {mode.name} "
+            f"cargs={launch.cargs}{live} max_abs_err={e}")
+        if e != 0:
+            raise AssertionError(f"{launch.kernel} {mode.name} "
+                                 f"{launch.cargs}: the kernel differs from "
+                                 "its plain version")
+        tally[launch.kernel] = tally.get(launch.kernel, 0) + 1
+        errs[launch.kernel] = max(errs.get(launch.kernel, 0), e)
+
+    return run
+
+
 def check_slot_merges(slot: int = SLOT, device="cuda") -> int:
     """merge_slots_u32 and merge_slots_pairs (stable) on a full-width slot
     buffer, prearranged both ways, bitwise against numpy; every gated local
@@ -997,27 +1044,8 @@ def check_slot_merges(slot: int = SLOT, device="cuda") -> int:
     order = _stable_order(allk)
     want_k, want_v, total = allk[order], allv[order], allk.size
     sizes_t = torch.tensor(sizes, device=device)
-    err, checked = 0, 0
-    real_run = bk.run
-
-    def checked_run(launch, arrs, mode, nunits, valid=None):
-        nonlocal err, checked
-        if launch.kernel != "local_gated":
-            return real_run(launch, arrs, mode, nunits, valid)
-        want = [a.clone() for a in arrs]
-        real_run(launch, arrs, mode, nunits, valid)
-        bk.run_plain(launch, want, mode, nunits, valid)
-        sync(device)
-        e = _max_abs_err(arrs, want)
-        log(f"[kernel] n={arrs[0].numel()} local_gated {mode.name} "
-            f"r={launch.cargs[1]} live={int(valid[:nunits].sum())}/{nunits} "
-            f"max_abs_err={e}")
-        if e != 0:
-            raise AssertionError(f"local_gated {mode.name} {launch.cargs}: "
-                                 "the kernel differs from its plain version")
-        err, checked = max(err, e), checked + 1
-
-    bk.run = checked_run
+    held, errs, real_run = {}, {}, bk.run
+    bk.run = _held_run(MERGE_KERNELS, device, held, errs)
     try:
         for pre in (True, False):
             kb = to_dev(slot_buffer(runs, slot, KEY_SENTINEL, pre), device)
@@ -1033,9 +1061,41 @@ def check_slot_merges(slot: int = SLOT, device="cuda") -> int:
             del kb, vb, gk, gv
     finally:
         bk.run = real_run
-    if checked == 0:
+    if not held:
         raise AssertionError("the slot merges launched no gated local")
-    return err
+    return errs["local_gated"]
+
+
+def check_halves_merge(m: int = N_RANK, device="cuda") -> None:
+    """The keys half merge of the overlap path (`_bitonic_merge_halves`)
+    at the shape phase 7b gives it: two ascending m-key halves with fill
+    tails (A's genuine prefix a little over m/2, B's the rest, genuine
+    0xFFFFFFFF keys among them), merged at np2 = 2m on the carry chunk.
+    Every K3 and K4 launch is held against its plain version on a copy of
+    its input, and the m keys out against numpy."""
+    rng = np.random.default_rng(SEED + 40)
+    rA = m // 2 + m // 97
+    keys = rng.integers(0, 2**32, m, dtype=np.uint64).astype(np.uint32)
+    keys[rng.random(m) < 1 / 64] = KEY_SENTINEL
+    halves = [np.concatenate([np.sort(part), np.full(m - part.size,
+                                                     KEY_SENTINEL, np.uint32)])
+              for part in (keys[:rA], keys[rA:])]
+    sA, sB = (to_dev(h, device) for h in halves)
+    held, errs, real_run = {}, {}, bk.run
+    bk.run = _held_run(("cross", "local"), device, held, errs)
+    try:
+        got = td._bitonic_merge_halves(sA, sB)
+    finally:
+        bk.run = real_run
+    _expect(got, np.sort(keys), f"half merge of two {m}-key halves")
+    want = {k: v for k, v in _halves_launches(m).items() if v}
+    if held != want:
+        raise AssertionError(f"the half merge held launches {held}, not "
+                             f"{want}")
+    log(f"[main] half merge of two {m}-key halves (np2={2 * m}, chunk "
+        f"{min(CHUNK_CARRY, 2 * m)}): launches {json.dumps(held)} held "
+        f"against their plain versions, max_abs_err={max(errs.values())}, "
+        "ok")
 
 
 # -- phase 7: the distributed path -------------------------------------------
@@ -1190,6 +1250,262 @@ def dist_phase(n_rank: int = N_RANK, world: int = WORLD, device="cuda:0",
                 np.load(f"{tmp}/slot_{tag}_sizes.npy"), S, m)
     log("[launches] dist", json.dumps(total))
     return total, slot_bufs
+
+
+# -- phase 7b: overlap, the 2-D tier and the scaling reports -----------------
+
+WORLD2_LABEL = f"{WORLD} ranks sharing one H100, gloo"
+
+
+def dist2_cases(n: int, world: int = WORLD) -> dict:
+    """name -> case: `mesh` (on the 2 x world/2 mesh, else the 1-D world),
+    key distribution, kv, global n and count=, the call's options, and
+    what its launches must show: `sorts`, local sorts a rank runs (K1
+    launches; None: one where the slots fit, else two), `merge` (the gated
+    local kernel runs; None: where the slots fit, read from the host's own
+    size matrix, `_slots_fit`), `halves` (the keys half merge's K3 and K4
+    run beyond the local sorts), `error` (a ValueError naming it, on every
+    rank)."""
+    ragged = n - 1000
+    mesh = dict(mesh=True)
+    return {
+        "1-D overlap keys uniform": dict(
+            dist="uniform", overlap=True, merge_resort=False, sorts=3,
+            merge=False, halves=True),
+        "1-D overlap stable kv few": dict(
+            dist="few", kv=True, overlap=True, merge_resort=False, sorts=3,
+            merge=False),
+        "1-D overlap+merge keys uniform": dict(
+            dist="uniform", overlap=True, merge_resort=True, sorts=1,
+            merge=True, halves=True),
+        "1-D overlap+merge stable kv uniform": dict(
+            dist="uniform", kv=True, overlap=True, merge_resort=True,
+            sorts=1, merge=True),
+        "2-D keys uniform": dict(mesh, dist="uniform", sorts=1, merge=True),
+        "2-D stable kv few": dict(mesh, dist="few", kv=True, sorts=None,
+                                  merge=None),
+        "2-D keys ragged count=": dict(
+            mesh, dist="uniform", n=ragged, count=ragged - n // 128,
+            sorts=1, merge=True),
+        "2-D keys constant, fallback": dict(mesh, dist="constant", sorts=2,
+                                            merge=False),
+        "2-D overlap keys uniform": dict(mesh, dist="uniform", overlap=True,
+                                         sorts=3, merge=False, halves=True),
+        "2-D overlap stable kv uniform": dict(mesh, dist="uniform", kv=True,
+                                              overlap=True, sorts=3,
+                                              merge=False),
+        "2-D dcn_slack=1 on skewed keys": dict(mesh, dist="skew",
+                                               dcn_slack=1,
+                                               error="dcn_slack"),
+    }
+
+
+def skewed_keys(n: int, world: int, seed: int = SEED + 12) -> np.ndarray:
+    """Keys whose hop-A staging overflows dcn_slack=1 on the 2 x world/2
+    mesh: the ranks of ici index 0 (0 and world/2) hold small keys, every
+    other rank 0xF0000000, so both hosts' index-0 ranks send their whole
+    shards to one staging rank of host 0 (2m > 1 x m)."""
+    m = n // world
+    keys = np.full(n, 0xF0000000, np.uint32)
+    small = datagen.generate_keys(2 * m, seed=seed) % np.uint32(1000)
+    keys[:m], keys[world // 2 * m:(world // 2 + 1) * m] = small[:m], small[m:]
+    return keys
+
+
+def dist2_rank(rank: int, world: int, tmp: str, n: int, device: str,
+               use_kernels, iters: int) -> None:
+    """One rank of phase 7b: each case of `dist2_cases` through the public
+    entry points with the launch counters zeroed just before the sort and
+    read just after; then the three reports. Outputs and reports go to
+    `tmp`."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    mesh = td.make_mesh_2d(2, world // 2)
+    vals = np.load(f"{tmp}/vals.npy", mmap_mode="r")
+    report = {}
+    for i, (name, case) in enumerate(dist2_cases(n, world).items()):
+        nn = case.get("n", n)
+        keys = np.load(f"{tmp}/keys_{case['dist']}.npy", mmap_mode="r")
+        m = -(-nn // world)
+        lo, hi = min(rank * m, nn), min((rank + 1) * m, nn)
+        dk = to_dev(np.array(keys[lo:hi]), dev)
+        dv = to_dev(np.array(vals[lo:hi]), dev) if case.get("kv") else None
+        kw = dict(group=mesh if case.get("mesh") else None,
+                  count=case.get("count"), use_kernels=use_kernels,
+                  overlap=case.get("overlap", False),
+                  merge_resort=case.get("merge_resort"),
+                  dcn_slack=case.get("dcn_slack"), phase_times={})
+        rep = {}
+        sync(dev)
+        reset_launches()
+        t = time.perf_counter()
+        try:
+            with timing.LaunchTimer() as timer:
+                if dv is not None:
+                    gk, gv = td.sort_pairs_sharded(dk, dv, **kw)
+                else:
+                    gk = td.sort_sharded(dk, **kw)
+                sync(dev)
+            rep["wall_s"] = time.perf_counter() - t
+            np.save(f"{tmp}/out{i}_{rank}_k.npy", gk.cpu().numpy())
+            if dv is not None:
+                np.save(f"{tmp}/out{i}_{rank}_v.npy", gv.cpu().numpy())
+        except ValueError as e:
+            rep["error"] = str(e)
+        counts = launch_counts()
+        if dev.type == "cpu":  # a rehearsal: plain versions count nothing
+            counts = dict.fromkeys(counts, 0)
+            for rec in timer.records:
+                for k in rec["names"]:
+                    counts[k] += 1
+        report[name] = dict(rep, launches=counts, phases=kw["phase_times"])
+    kw = dict(use_kernels=use_kernels, iters=iters, device=device)
+    reports = {"phase_report": scaling.phase_report(None, n, **kw),
+               "phase_report overlap": scaling.phase_report(
+                   None, n, overlap=True, **kw),
+               "dcn_report": scaling.dcn_report(mesh, n, **kw),
+               "scaling_report": scaling.scaling_report(
+                   n // world, [1, 2, world], **kw)}
+    with open(f"{tmp}/report{rank}.json", "w") as f:
+        json.dump({"cases": report, "reports": reports}, f)
+
+
+def _oracle(data, cache, dist: str, nn: int, count, kv: bool):
+    """Keys (and values) the sort of case (dist, nn, count, kv) must give:
+    the live prefix sorted (stably, for kv), the tail untouched."""
+    key = (dist, nn, count, kv)
+    if key not in cache:
+        keys = data[dist][:nn]
+        live = keys if count is None else keys[:count]
+        if kv:
+            o = _stable_order(live)
+            vals = data["vals"]
+            cache[key] = (np.concatenate([live[o], keys[live.size:]]),
+                          np.concatenate([vals[:live.size][o],
+                                          vals[live.size:nn]]))
+        else:
+            cache[key] = (np.concatenate([np.sort(live), keys[live.size:]]),)
+    return cache[key]
+
+
+def _slots_fit(keys: np.ndarray, world: int) -> bool:
+    """Whether the exchange of `keys` (n a multiple of `world`, sharded
+    evenly) fits the merge re-sort's slots: no block of its size matrix
+    above `slot_size`. The matrix as the port cuts it: rank d receives
+    the positions [d*m, (d+1)*m) of the stable sorted order."""
+    m = keys.size // world
+    src = _stable_order(keys) // m
+    blocks = np.bincount(src * world + np.arange(keys.size) // m,
+                         minlength=world * world)
+    return int(blocks.max()) <= td.slot_size(m, world)
+
+
+def _halves_launches(m: int) -> dict[str, int]:
+    """Launches of one keys half merge of two m-key halves
+    (`_bitonic_merge_halves` at the default carry chunk)."""
+    np2 = bitonic._next_pow2(2 * m)
+    C = min(CHUNK_CARRY, np2)
+    return {"cross": len(bitonic._cross_spans(bk.log2(np2 // C), bk.KEYS)),
+            "local": 1}
+
+
+def dist2_phase(n_rank: int = N_RANK, world: int = WORLD, device="cuda:0",
+                use_kernels=None, iters: int = 3) -> None:
+    """Phase 7b: a world of `world` gloo ranks on `device` through each
+    case of `dist2_cases` (overlap=True on the 1-D world, with and without
+    the merge re-sort; the 2 x world/2 mesh with and without overlap),
+    each answer bitwise against a numpy oracle and each case's launches
+    checked; then the three reports (`parallel/scaling.py`), printed. The
+    per-sort launches of a local keys sort of one shard are measured here
+    first, apart from the cases."""
+    n = n_rank * world
+    cases = dist2_cases(n, world)
+    data = {d: datagen.generate_keys(n, seed=SEED + 10, distribution=d)
+            for d in ("uniform", "few", "constant")}
+    data["skew"] = skewed_keys(n, world)
+    data["vals"] = datagen.generate_values(n, seed=SEED + 11)
+    reset_launches()
+    bitonic.sort_u32(to_dev(data["uniform"][:n_rank], device))
+    sync(device)
+    per_sort = launch_counts()
+    halves = _halves_launches(n_rank)
+    with tempfile.TemporaryDirectory() as tmp:
+        for d, a in data.items():
+            np.save(f"{tmp}/{'vals' if d == 'vals' else 'keys_' + d}.npy", a)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        td.spawn_world(dist2_rank, world, tmp, n, str(device), use_kernels,
+                       iters, init_file=f"{tmp}/store")
+        log(f"[dist2d] {world} gloo ranks on {device}, {n_rank} keys each, "
+            f"mesh 2 x {world // 2}: world done in "
+            f"{time.perf_counter() - t:.1f} s")
+        reps = []
+        for r in range(world):
+            with open(f"{tmp}/report{r}.json") as f:
+                reps.append(json.load(f))
+        cache = {}
+        for i, (name, case) in enumerate(cases.items()):
+            runs = [rep["cases"][name] for rep in reps]
+            if "error" in case:
+                if not all(case["error"] in run.get("error", "")
+                           for run in runs):
+                    raise AssertionError(f"{name}: not refused on every "
+                                         f"rank: {runs}")
+                log(f"[main] {name}: ValueError on every rank, ok")
+                continue
+            errors = [run["error"] for run in runs if "error" in run]
+            if errors:
+                raise AssertionError(f"{name}: {errors[0]}")
+            kv = case.get("kv", False)
+            want = _oracle(data, cache, case["dist"], case.get("n", n),
+                           case.get("count"), kv)
+            for x, w in zip("kv", want):
+                got = np.concatenate([np.load(f"{tmp}/out{i}_{r}_{x}.npy")
+                                      for r in range(world)])
+                _expect(torch.from_numpy(got), w,
+                        f"{name}, {'keys' if x == 'k' else 'values'}")
+            counts = {k: sum(run["launches"][k] for run in runs)
+                      for k in per_sort}
+            merge = case["merge"]
+            if merge is None:
+                merge = _slots_fit(data[case["dist"]][:case.get("n", n)],
+                                   world)
+            sorts = world * (case["sorts"] or (1 if merge else 2))
+            log(f"[launches] {'overlap' if case.get('overlap') else 'dist2d'}"
+                f" {name}", json.dumps(counts))
+            bad = []
+            if counts["chunk"] != sorts:  # one K1 launch a local sort
+                bad.append(f"chunk {counts['chunk']}, not {sorts} local "
+                           "sorts")
+            if (counts["local_gated"] > 0) != merge:
+                bad.append(f"local_gated {counts['local_gated']} where the "
+                           f"slot merge {'runs' if merge else 'does not'}")
+            if case.get("halves"):
+                # the half merge: K3 and K4 beyond the local sorts' (and,
+                # with the slot merges, K4 beyond; their K3 adds more)
+                extra = {k: counts[k] - sorts * per_sort[k]
+                         for k in ("cross", "local")}
+                need = {k: world * v for k, v in halves.items()}
+                if extra["local"] != need["local"] or (
+                        extra["cross"] < need["cross"]) or (
+                        not merge and extra["cross"] != need["cross"]):
+                    bad.append(f"cross/local beyond the local sorts "
+                               f"{extra}, not {need}")
+            if bad:
+                raise AssertionError(f"{name}: " + "; ".join(bad))
+            tag = "[overlap]" if case.get("overlap") else "[dist2d]"
+            log(f"{tag} {name} ({WORLD2_LABEL}):", json.dumps({
+                "rank0_wall_s": runs[0]["wall_s"],
+                "max_over_ranks_wall_s": max(r["wall_s"] for r in runs),
+                "rank0_phase_s": runs[0]["phases"]}))
+        for what, rep in reps[0]["reports"].items():
+            if any(r["reports"][what] != rep for r in reps[1:]):
+                raise AssertionError(f"{what} differs between ranks")
+            for row in rep if isinstance(rep, list) else [rep]:
+                log(f"[scaling] {what} ({WORLD2_LABEL}):", json.dumps(row))
 
 
 # -- phase 8: merge times ----------------------------------------------------
@@ -1621,8 +1937,10 @@ def main() -> int:
     del sorts, keys, vals
 
     err["local_gated"] = check_slot_merges()
+    check_halves_merge()
     dist_launches, slot_bufs = dist_phase()
     launches["local_gated"] = dist_launches["local_gated"]
+    dist2_phase()
     per["local_gated"] = merge_times(slot_bufs, card)["local_gated"]
     del slot_bufs
 

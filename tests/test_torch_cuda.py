@@ -24,6 +24,7 @@ from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
+from vulkan_radix_sort_tpu_torch.parallel import scaling
 from vulkan_radix_sort_tpu_torch.bench import harness
 from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
 
@@ -411,6 +412,81 @@ def test_cuda_sort_sharded_single_rank(cuda_device, backend, tmp_path):
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
     np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+
+
+@pytest.mark.cuda
+def test_cuda_overlap_single_rank_gloo(cuda_device, tmp_path):
+    """overlap=True through gloo on a world of one rank (nothing to split:
+    it sorts as without it, as in the JAX package), keys and stable kv;
+    then the half merge it runs on more ranks, `_bitonic_merge_halves`, on
+    the card: the launch recorder sees its K3 and K4, and its keys equal
+    numpy's."""
+    n = (1 << 20) + 5
+    keys, vals = _u32(n, 40, 1 << 16), _u32(n, 41)
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(vals).to(cuda_device)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        got = td.sort_sharded(dk, overlap=True)
+        gk, gv = td.sort_pairs_sharded(dk, dv, overlap=True)
+    finally:
+        dist.destroy_process_group()
+    np.testing.assert_array_equal(got.cpu().numpy(), np.sort(keys))
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+    m = 1 << 20
+    halves = [np.sort(_u32(m // 2 + d, 42 + d)) for d in (3, -3)]
+    fill = np.full(m, 0xFFFFFFFF, np.uint32)
+    sA, sB = fill.copy(), fill.copy()
+    sA[:halves[0].size], sB[:halves[1].size] = halves
+    with timing.LaunchTimer() as timer:
+        merged = td._bitonic_merge_halves(
+            torch.from_numpy(sA).to(cuda_device),
+            torch.from_numpy(sB).to(cuda_device))
+        torch.cuda.synchronize()
+    names = [name for rec in timer.records for name in rec["names"]]
+    assert names.count("local") == 1 and names.count("cross") >= 1
+    np.testing.assert_array_equal(merged.cpu().numpy(),
+                                  np.sort(np.concatenate(halves)))
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_2d_single_rank(cuda_device, tmp_path):
+    """make_mesh_2d(1, 1) on a world of one gloo rank: sort_sharded and
+    sort_pairs_sharded with count= through it, the two-hop exchange over
+    its one-rank dcn and ici groups on card tensors, and the reports'
+    CUDA-event timing (dcn_report, phase_report) with their byte
+    counts."""
+    n = (1 << 20) + 7
+    keys, vals = _u32(n, 43, 1 << 12), _u32(n, 44)
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(vals).to(cuda_device)
+    c = n - 999
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            world_size=1, rank=0)
+    try:
+        mesh = td.make_mesh_2d(1, 1)
+        got = td.sort_sharded(dk, mesh, count=c)
+        gk, gv = td.sort_pairs_sharded(dk, dv, mesh)
+        out = torch.empty_like(dk)
+        td._exchange([dk], [[n]], td._Group(None, cuda_device), mesh, n, 1,
+                     [out])()
+        rep = scaling.dcn_report(mesh, 1 << 20, iters=1)
+        phases = scaling.phase_report(None, 1 << 20, iters=1)
+    finally:
+        dist.destroy_process_group()
+    got = got.cpu().numpy()
+    np.testing.assert_array_equal(got[:c], np.sort(keys[:c]))
+    np.testing.assert_array_equal(got[c:], keys[c:])
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
+    np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+    np.testing.assert_array_equal(out.cpu().numpy(), keys)
+    assert rep["dcn_bytes"] == 0 and rep["hop_b_ici_bytes"] == 4 << 20
+    assert rep["mesh"] == (1, 1) and rep["use_kernels"]
+    assert phases["devices"] == 1 and phases["full_s"] > 0
 
 
 def _keys64(n, seed):

@@ -25,7 +25,6 @@ from vulkan_radix_sort_tpu.parallel import distributed as jdist
 from vulkan_radix_sort_tpu_torch.config import SortConfig
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
-from vulkan_radix_sort_tpu_torch.parallel import scaling
 from vulkan_radix_sort_tpu_torch.utils import datagen
 
 WORLD = 4
@@ -98,7 +97,7 @@ def _world(rank, world, tmp):
             else:
                 gk = td.sort_sharded(k, **kw)
             np.save(f"{tmp}/{name}_{rank}_k.npy", gk.numpy())
-        except (ValueError, NotImplementedError) as e:
+        except ValueError as e:
             result["error"] = [type(e).__name__, str(e)]
         result["kernels"] = sorted(set(calls))
         with open(f"{tmp}/{name}_{rank}.json", "w") as f:
@@ -192,13 +191,25 @@ def test_stable_kv_matches_numpy(world, name):
         assert all("local_gated" in k for k in kernels)
 
 
-@pytest.mark.parametrize("name,error", [("overlap", "NotImplementedError"),
-                                        ("bad_layout", "ValueError")])
+@pytest.mark.parametrize("name,error", [("bad_layout", "ValueError")])
 def test_refusals(world, name, error):
-    """overlap=True is a later slice; shards off the JAX layout are
-    refused on every rank."""
+    """Shards off the JAX layout are refused on every rank."""
     for rep in _reports(world, name):
         assert rep["error"][0] == error
+
+
+def test_overlap_matches_jax(world):
+    """overlap=True (merge_resort=None: the slot merge per source half,
+    then the keys half merge) as the JAX package's: every rank ran the
+    gated local kernel (the half merges) and the local kernel (the
+    bitonic merge of the halves)."""
+    case = CASES["overlap"]
+    keys, _ = _data(case)
+    got = _joined(world, "overlap")
+    np.testing.assert_array_equal(got, _jax_sort(case, keys, overlap=True))
+    np.testing.assert_array_equal(got, np.sort(keys))
+    for r, kernels in enumerate(_kernels(world, "overlap")):
+        assert {"local_gated", "local"} <= kernels, r
 
 
 def test_slot_dest_prearranges_odd_sources():
@@ -218,12 +229,3 @@ def test_slot_size():
     assert td.slot_size(2048, 4) == 1024
     assert td.slot_size(100, 4) == 256  # at least MIN_CHUNK
     assert td.slot_size(1000, 3) == 1024
-
-
-@pytest.mark.parametrize("fn", [td.make_mesh_2d, scaling.phase_report,
-                                scaling.dcn_report, scaling.scaling_report],
-                         ids=lambda f: f.__name__)
-def test_later_slices_refuse(fn):
-    """The 2-D tier and the scaling reports are later slices."""
-    with pytest.raises(NotImplementedError):
-        fn(2, 4)

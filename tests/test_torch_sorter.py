@@ -287,11 +287,23 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
     assert '"ok"' not in alone.stdout
 
 
+def test_chip_smoke_dist2_phase_on_the_cpu(monkeypatch):
+    """chip_smoke.py's phase 7b (overlap on the 1-D world, the 2 x 2 mesh,
+    the reports) rehearsed on 4 gloo CPU ranks at 2^13 keys a rank with
+    the plain versions: every answer against numpy, every launch check
+    (from the launch recorder: plain versions count no launch), the
+    dcn_slack=1 refusal, and the reports the same on every rank."""
+    monkeypatch.syspath_prepend(str(ROOT))  # the ranks import it by name
+    cs = importlib.import_module("chip_smoke")
+    cs.dist2_phase(n_rank=1 << 13, device="cpu", use_kernels=True, iters=1)
+
+
 def test_chip_smoke_phases_on_the_cpu(monkeypatch):
-    """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase)
-    and main-path phases, rehearsed at a small size on the CPU (plain
-    versions): the network through 'auto', then the radix backend, against
-    one set of oracles; then the 64-bit path."""
+    """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase,
+    K3 and K4 through the half merge) and main-path phases, rehearsed at a
+    small size on the CPU (plain versions): the network through 'auto',
+    then the radix backend, against one set of oracles; then the 64-bit
+    path."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
@@ -303,6 +315,7 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     err = cs.check_kernels(sizes=((1 << 16, True), (1 << 16, False)),
                            device="cpu")
     err["local_gated"] = cs.check_slot_merges(slot=1 << 12, device="cpu")
+    cs.check_halves_merge(m=1 << 13, device="cpu")
     assert set(err) == set(cs.KERNELS) and not any(err.values())
     oracles = {}
     kw = dict(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu",
