@@ -21,19 +21,25 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      16384 and both digit widths, with uniform keys, few distinct digits
      and one key only, and at the main path's 2^25 shapes, keys and
      key-value, with a ragged last block of sentinel pads;
-  4. main path, once per backend (the network through 'auto', then
-     'radix'): the public entry points (vrs.sort, Sorter.sort,
-     Sorter.sort_key_value) at n = 2^25 and the other shapes below, each
-     bitwise equal to a numpy oracle computed once for both; the kernels'
-     launch counters are zeroed just before each backend's run and read
-     just after, and every kernel of that backend must have launched (each
-     radix sort launches K7 and K8 exactly num_passes times); then the
-     64-bit path (uint64, int64 and float64 keys) through the same entry
-     points at 2^25, its launches counted per carry: chunk, fused, cross,
-     local and the gate must launch in both w3 and w4_big;
-  5. times on the card with CUDA events: end to end with torch.sort as the
-     yardstick, and per kernel with its bound and its plain version; for
-     the 64-bit sorts per kernel and carry;
+  4. main path, once per backend ('network', 'radix', then 'auto', which
+     picks a backend per kind of sort from the sorter's n): the public
+     entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value) at
+     n = 2^25 and the other shapes below, each bitwise equal to a numpy
+     oracle computed once for all three; each sort's launches, read from
+     a launch recorder, must be those of its kind's backend (radix: K7
+     and K8 exactly num_passes times; network: network kernels only;
+     reference: none); the kernels' launch counters are zeroed just
+     before each backend's run and read just after, and every kernel of
+     that backend must have launched; then the 64-bit path (uint64, int64
+     and float64 keys) through the same entry points at 2^25, on the
+     network with its launches counted per carry (chunk, fused, cross,
+     local and the gate must launch in both w3 and w4_big), and through
+     'auto' (the '[launches] auto' line: the kernels of every backend
+     'auto' picked, 32- and 64-bit, and no other);
+  5. times on the card with CUDA events, of sorts that name their
+     backend: end to end with torch.sort as the yardstick, and per kernel
+     with its bound and its plain version; for the 64-bit sorts per
+     kernel and carry;
   6. slot merges: a slot buffer of 4 slots x 2^24 (slack-2 fill with the
      sizes of a uniform 4-rank exchange, one empty slot, one full slot,
      genuine 0xFFFFFFFF keys), keys and stable carries: every launch of
@@ -84,12 +90,19 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      reference backends at 2^14 to 2^25 (keys, kv, kvns), each after
      its correctness gate, one point of the native C++ engine, and the
      sizes from which network and radix beat the reference backend;
+     `[sweep64]`, the same for uint64 keys, network against reference
+     (radix refuses them); `[auto]`, for each key width and sort kind at
+     every swept size, the backend Sorter(n) picks and its ms beside the
+     fastest backend of the sweep, and the engine and cut this run
+     measured beside the constants of models/sorter.py (report only);
  12. profile: one profiling.trace around network keys sorts at 2^25:
      device time by kernel name (K1-K4) and the device's busy share of
      the traced window.
 Then the `kernels` JSON line (each network row with its 64-bit carries'
-figures under "w3" and "w4_big"), the card's name and power limit as
-nvidia-smi gives them, and last the {"ok": true, ...} result line.
+figures under "w3" and "w4_big"; `launches` counts the launches on the
+path of the kernel's backend, `auto_launches` those on the 'auto'
+path), the card's name and power limit as nvidia-smi gives them, and
+last the {"ok": true, ...} result line.
 """
 
 from __future__ import annotations
@@ -126,6 +139,7 @@ N_RAGGED = (1 << 24) + 4096
 N_CHECK = 1 << 20    # kernel-vs-plain size
 SEED = 0
 TIMED_RUNS = 3
+NETWORK = SortConfig(backend="network")
 RADIX = SortConfig(backend="radix")
 RAGGED_TAIL = 1000   # sentinel pads closing the last block of a K7/K8 check
 WORLD = 4            # ranks of the distributed path, all on cuda:0
@@ -477,16 +491,68 @@ def _pairs_oracle(k: np.ndarray, v: np.ndarray):
     return (c >> np.uint64(32)).astype(np.uint32), c.astype(np.uint32)
 
 
+def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
+    """Launches by counter name in a LaunchTimer's records (on the CPU,
+    the plain versions that stand in for the kernels)."""
+    got = {}
+    for rec in timer.records:
+        for k in rec["names"]:
+            got[k] = got.get(k, 0) + 1
+    return got
+
+
+def check_backend_launches(backend: str, got: dict[str, int],
+                           config: SortConfig, what: str) -> None:
+    """One sort's launches against the backend that ran it: radix launches
+    K7 and K8 exactly num_passes times each and no network kernel; the
+    network launches network kernels and no radix kernel; the reference
+    backend launches no kernel."""
+    net = sum(got.get(k, 0) for k in NETWORK_KERNELS + MERGE_KERNELS)
+    rad = {k: got.get(k, 0) for k in RADIX_KERNELS}
+    ok = {"radix": net == 0 and set(rad.values()) == {config.num_passes},
+          "network": net > 0 and not any(rad.values()),
+          "reference": not any(got.values())}[backend]
+    if not ok:
+        raise AssertionError(f"{what}: the {backend} backend launched {got}")
+
+
+def kind_backends(sorter) -> dict[str, str]:
+    return {"keys": sorter.backend, "kv": sorter.backend_kv,
+            "kvns": sorter.backend_kvns}
+
+
+def held_runs(sorter, tag: str):
+    """run(kind, fn, ...) and run_kv(fn, ..., stable=...): call fn inside
+    a launch recorder and hold its launches to the sorter's backend of
+    that kind (`check_backend_launches`)."""
+    backends = kind_backends(sorter)
+
+    def run(kind, fn, *args, **kw):
+        with timing.LaunchTimer() as timer:
+            out = fn(*args, **kw)
+        check_backend_launches(backends[kind], _recorded(timer),
+                               sorter.config, f"{tag}{kind} sort")
+        return out
+
+    def run_kv(fn, *args, stable=True, **kw):
+        return run("kv" if stable else "kvns", fn, *args, stable=stable,
+                   **kw)
+    return run, run_kv
+
+
 def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
               config: SortConfig | None = None,
-              oracles: dict | None = None) -> None:
-    """The port's entry points at full size with `config` (None: 'auto',
-    the network on a card); each result against a numpy oracle. `oracles`
-    caches each oracle, so a second backend's run reuses the first's.
+              oracles: dict | None = None) -> dict[str, str]:
+    """The port's entry points at full size with `config`: NETWORK, RADIX,
+    or None for 'auto', which picks a backend per kind of sort (keys,
+    stable kv, non-stable kv) from the sorter's n. Each result against a
+    numpy oracle; `oracles` caches each oracle, so a later backend's run
+    reuses the first's. Every sort's launches are read from a launch
+    recorder and held to its kind's backend (`check_backend_launches`).
 
-    The radix backend is stable either way, so its stable=False answers
-    are held to the stable oracle; and each of its sorts must launch K7
-    and K8 exactly num_passes times and no network kernel."""
+    The radix and reference backends are stable either way, so their
+    stable=False answers are held to the stable oracle, the network's to
+    the (key, value) order. Returns the backend of each kind."""
     oracles = {} if oracles is None else oracles
 
     def want(key, fn):
@@ -494,47 +560,40 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
             oracles[key] = fn()
         return oracles[key]
 
-    is_radix = config is not None and config.backend == "radix"
-    tag = "radix " if is_radix else ""
-    on_card = torch.device(device).type == "cuda"
+    sorter = vrs.Sorter(n, device=device, config=config)
+    # vrs.sort and vrs.sort_key_value build a sorter of the same n and
+    # config: the same backends
+    backends = kind_backends(sorter)
+    tag = ("auto " if config is None else
+           "" if config.backend == "network" else f"{config.backend} ")
+    log(f"[main] {tag or 'network '}backends at n={n}:",
+        json.dumps(backends))
+    run, run_kv = held_runs(sorter, tag)
 
-    def run(fn, *args, **kw):
-        before = launch_counts()
-        out = fn(*args, **kw)
-        if is_radix and on_card:
-            after = launch_counts()
-            got = {k: after[k] - before[k] for k in after}
-            need = {k: config.num_passes if k in RADIX_KERNELS else 0
-                    for k in after}
-            if got != need:
-                raise AssertionError(f"a radix sort launched {got}, not "
-                                     f"{need}")
-        return out
-
-    ns_oracle, ns = ((_stable_oracle, "stable") if is_radix
-                     else (_pairs_oracle, "pairs"))
+    nonstable_network = backends["kvns"] == "network"
+    ns_oracle, ns = ((_pairs_oracle, "pairs") if nonstable_network
+                     else (_stable_oracle, "stable"))
     keys = want("keys", lambda: datagen.generate_keys(n, seed=SEED))
     vals = want("vals", lambda: datagen.generate_values(n, seed=SEED + 1))
     dk, dv = to_dev(keys, device), to_dev(vals, device)
-    sorter = vrs.Sorter(n, device=device, config=config)
 
-    _expect(run(vrs.sort, dk, config=config),
+    _expect(run("keys", vrs.sort, dk, config=config),
             want("sort", lambda: np.sort(keys)), f"{tag}keys uniform")
-    gk, gv = run(sorter.sort_key_value, dk, dv)
+    gk, gv = run_kv(sorter.sort_key_value, dk, dv)
     wk, wv = want("stable", lambda: _stable_oracle(keys, vals))
     _expect(gk, wk, f"{tag}stable kv uniform, keys")
     _expect(gv, wv, f"{tag}stable kv uniform, values")
-    gk, gv = run(vrs.sort_key_value, dk, dv, config=config, stable=False)
+    gk, gv = run_kv(vrs.sort_key_value, dk, dv, config=config, stable=False)
     wk, wv = want(ns, lambda: ns_oracle(keys, vals))
     _expect(gk, wk, f"{tag}non-stable kv uniform, keys")
     _expect(gv, wv, f"{tag}non-stable kv uniform, values")
 
     # ragged: the grid clip and the group-granularity skip rule matter
     m = n_ragged
-    _expect(run(sorter.sort, dk[:m]),
+    _expect(run("keys", sorter.sort, dk[:m]),
             want("sort ragged", lambda: np.sort(keys[:m])),
             f"{tag}keys ragged")
-    gk, gv = run(sorter.sort_key_value, dk[:m], dv[:m])
+    gk, gv = run_kv(sorter.sort_key_value, dk[:m], dv[:m])
     wk, wv = want("stable ragged",
                   lambda: _stable_oracle(keys[:m], vals[:m]))
     _expect(gk, wk, f"{tag}stable kv ragged, keys")
@@ -547,7 +606,7 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         return mk
     mk = want("max keys", with_max_keys)
     dmk = to_dev(mk, device)
-    gk, gv = run(sorter.sort_key_value, dmk, dv)
+    gk, gv = run_kv(sorter.sort_key_value, dmk, dv)
     wk, wv = want("stable max", lambda: _stable_oracle(mk, vals))
     _expect(gk, wk, f"{tag}stable kv with 0xFFFFFFFF keys, keys")
     _expect(gv, wv, f"{tag}stable kv with 0xFFFFFFFF keys, values")
@@ -558,13 +617,12 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         w = mk.copy()
         w[:count] = np.sort(mk[:count])
         return w
-    _expect(run(sorter.sort, dmk, count=cnt), want("sort count",
-                                                   prefix_sorted),
-            f"{tag}keys count=")
+    _expect(run("keys", sorter.sort, dmk, count=cnt),
+            want("sort count", prefix_sorted), f"{tag}keys count=")
     for stable in (True, False):
         what = f"{tag}{'stable' if stable else 'non-stable'} kv count="
-        gk, gv = run(sorter.sort_key_value, dmk, dv, count=cnt,
-                     stable=stable)
+        gk, gv = run_kv(sorter.sort_key_value, dmk, dv, count=cnt,
+                        stable=stable)
         kind, oracle = (("stable", _stable_oracle) if stable
                         else (ns, ns_oracle))
         wk, wv = want(f"{kind} count",
@@ -577,21 +635,22 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         k2 = want(dist, lambda: datagen.generate_keys(n, seed=SEED + 2,
                                                        distribution=dist))
         dk2 = to_dev(k2, device)
-        _expect(run(sorter.sort, dk2), want(f"sort {dist}",
-                                            lambda: np.sort(k2)),
+        _expect(run("keys", sorter.sort, dk2),
+                want(f"sort {dist}", lambda: np.sort(k2)),
                 f"{tag}keys {dist}")
-        gk, gv = run(sorter.sort_key_value, dk2, dv)
+        gk, gv = run_kv(sorter.sort_key_value, dk2, dv)
         wk, wv = want(f"stable {dist}", lambda: _stable_oracle(k2, vals))
         _expect(gk, wk, f"{tag}stable kv {dist}, keys")
         _expect(gv, wv, f"{tag}stable kv {dist}, values")
 
     ki = keys.view(np.int32)
-    _expect(run(vrs.sort, to_dev(ki, device), config=config),
+    _expect(run("keys", vrs.sort, to_dev(ki, device), config=config),
             want("sort int32", lambda: np.sort(ki)), f"{tag}int32 keys")
     kf = want("float32", lambda: np.random.default_rng(
         SEED + 3).standard_normal(n, dtype=np.float32))
-    _expect(run(vrs.sort, to_dev(kf, device), config=config),
+    _expect(run("keys", vrs.sort, to_dev(kf, device), config=config),
             want("sort float32", lambda: np.sort(kf)), f"{tag}float32 keys")
+    return backends
 
 
 # the 64-bit path ------------------------------------------------------------
@@ -641,13 +700,17 @@ def _expect64(got: torch.Tensor, want: np.ndarray, what: str) -> None:
 
 
 def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
-                oracles: dict | None = None) -> None:
-    """64-bit keys through the port's entry points at full size, each
-    result against a numpy oracle (the sort of the encoded words): uint64
-    keys-only (the (k, v) carry on (hi, lo)), stable key-value (w4_big)
-    and non-stable (w3: equal keys by ascending value), a ragged n,
-    count= as a device tensor on keys and both key-value modes, and int64
-    and float64 keys."""
+                config: SortConfig | None = None,
+                oracles: dict | None = None) -> dict[str, str]:
+    """64-bit keys through the port's entry points at full size with
+    `config` (NETWORK, or None for 'auto'), each result against a numpy
+    oracle (the sort of the encoded words): uint64 keys-only (on the
+    network the (k, v) carry on (hi, lo)), stable key-value (w4_big) and
+    non-stable (w3: equal keys by ascending value; the reference backend's
+    answer is the stable one), a ragged n, count= as a device tensor on
+    keys and both key-value modes, and int64 and float64 keys. Every
+    sort's launches are held to its kind's backend. Returns the backend of
+    each kind."""
     oracles = {} if oracles is None else oracles
 
     def want(key, fn):
@@ -655,55 +718,77 @@ def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
             oracles[key] = fn()
         return oracles[key]
 
+    sorter = vrs.Sorter(n, key_dtype=torch.uint64, device=device,
+                        config=config)
+    backends = kind_backends(sorter)
+    tag = "auto " if config is None else ""
+    log(f"[main] {tag or 'network '}u64 backends at n={n}:",
+        json.dumps(backends))
+    run, run_kv = held_runs(sorter, f"{tag}u64 ")
+
+    def order(k, v, stable):
+        if stable or backends["kvns"] != "network":
+            return np.argsort(k, kind="stable")
+        return np.lexsort((v, k))
+
     keys = want("keys64", lambda: keys64(n))
     vals = want("vals", lambda: datagen.generate_values(n, seed=SEED + 1))
     dk, dv = to_dev(keys, device), to_dev(vals, device)
-    sorter = vrs.Sorter(n, key_dtype=torch.uint64, device=device)
 
-    _expect64(vrs.sort(dk), want("sort64", lambda: np.sort(keys)),
-              "u64 keys")
-    o = want("stable64", lambda: np.argsort(keys, kind="stable"))
-    gk, gv = sorter.sort_key_value(dk, dv)
-    _expect64(gk, keys[o], "u64 stable kv, keys")
-    _expect(gv, vals[o], "u64 stable kv, values")
-    o = want("pairs64", lambda: np.lexsort((vals, keys)))
-    gk, gv = vrs.sort_key_value(dk, dv, stable=False)
-    _expect64(gk, keys[o], "u64 non-stable kv, keys")
-    _expect(gv, vals[o], "u64 non-stable kv, values")
+    _expect64(run("keys", vrs.sort, dk, config=config),
+              want("sort64", lambda: np.sort(keys)), f"{tag}u64 keys")
+    o = want("stable64", lambda: order(keys, vals, True))
+    gk, gv = run_kv(sorter.sort_key_value, dk, dv)
+    _expect64(gk, keys[o], f"{tag}u64 stable kv, keys")
+    _expect(gv, vals[o], f"{tag}u64 stable kv, values")
+    o = (want("pairs64", lambda: order(keys, vals, False))
+         if backends["kvns"] == "network" else o)
+    gk, gv = run_kv(vrs.sort_key_value, dk, dv, config=config, stable=False)
+    _expect64(gk, keys[o], f"{tag}u64 non-stable kv, keys")
+    _expect(gv, vals[o], f"{tag}u64 non-stable kv, values")
 
     m = n_ragged
-    _expect64(sorter.sort(dk[:m]), np.sort(keys[:m]), "u64 keys ragged")
-    o = np.argsort(keys[:m], kind="stable")
-    gk, gv = sorter.sort_key_value(dk[:m], dv[:m])
-    _expect64(gk, keys[:m][o], "u64 stable kv ragged, keys")
-    _expect(gv, vals[:m][o], "u64 stable kv ragged, values")
+    _expect64(run("keys", sorter.sort, dk[:m]),
+              want("sort64 ragged", lambda: np.sort(keys[:m])),
+              f"{tag}u64 keys ragged")
+    o = want("stable64 ragged", lambda: order(keys[:m], vals[:m], True))
+    gk, gv = run_kv(sorter.sort_key_value, dk[:m], dv[:m])
+    _expect64(gk, keys[:m][o], f"{tag}u64 stable kv ragged, keys")
+    _expect(gv, vals[:m][o], f"{tag}u64 stable kv ragged, values")
 
     count = n - n // 11 - 12345
     cnt = torch.tensor(count, device=device)
-    pk = keys[:count]
-    _expect64(sorter.sort(dk, count=cnt),
-              np.concatenate([np.sort(pk), keys[count:]]), "u64 keys count=")
+    pk, pv = keys[:count], vals[:count]
+    _expect64(run("keys", sorter.sort, dk, count=cnt),
+              np.concatenate([want("sort64 count", lambda: np.sort(pk)),
+                              keys[count:]]), f"{tag}u64 keys count=")
     for stable in (True, False):
-        what = f"u64 {'stable' if stable else 'non-stable'} kv count="
-        o = (np.argsort(pk, kind="stable") if stable
-             else np.lexsort((vals[:count], pk)))
-        gk, gv = sorter.sort_key_value(dk, dv, count=cnt, stable=stable)
+        what = f"{tag}u64 {'stable' if stable else 'non-stable'} kv count="
+        nonstable = not stable and backends["kvns"] == "network"
+        o = want(f"{'pairs' if nonstable else 'stable'}64 count",
+                 lambda: order(pk, pv, stable))
+        gk, gv = run_kv(sorter.sort_key_value, dk, dv, count=cnt,
+                        stable=stable)
         _expect64(gk, np.concatenate([pk[o], keys[count:]]), f"{what}, keys")
-        _expect(gv, np.concatenate([vals[:count][o], vals[count:]]),
+        _expect(gv, np.concatenate([pv[o], vals[count:]]),
                 f"{what}, values")
     del dk, dv, gk, gv
 
     ki = keys.view(np.int64)
-    _expect64(vrs.sort(to_dev(ki, device)), np.sort(ki), "int64 keys")
-    kf = floats64(n)
+    _expect64(run("keys", vrs.sort, to_dev(ki, device), config=config),
+              want("sort int64", lambda: np.sort(ki)), f"{tag}int64 keys")
+    kf = want("floats64", lambda: floats64(n))
     uf = encode64(kf)
-    got = vrs.sort(to_dev(kf, device)).cpu().numpy()
-    _expect64(torch.from_numpy(encode64(got)), np.sort(uf),
-              "float64 keys (IEEE total order)")
-    o = np.argsort(uf, kind="stable")
-    gk, gv = vrs.sort_key_value(to_dev(kf, device), to_dev(vals, device))
-    _expect64(gk, kf[o], "float64 stable kv, keys")
-    _expect(gv, vals[o], "float64 stable kv, values")
+    got = run("keys", vrs.sort, to_dev(kf, device), config=config)
+    _expect64(torch.from_numpy(encode64(got.cpu().numpy())),
+              want("sort float64", lambda: np.sort(uf)),
+              f"{tag}float64 keys (IEEE total order)")
+    o = want("stable float64", lambda: np.argsort(uf, kind="stable"))
+    gk, gv = run_kv(vrs.sort_key_value, to_dev(kf, device),
+                    to_dev(vals, device), config=config)
+    _expect64(gk, kf[o], f"{tag}float64 stable kv, keys")
+    _expect(gv, vals[o], f"{tag}float64 stable kv, values")
+    return backends
 
 
 W64_CARRIES = ("w3", "w4_big")
@@ -718,7 +803,7 @@ def _path_launches64(oracles) -> dict:
     counters."""
     reset_launches()
     with timing.LaunchTimer() as timer:
-        main_path64(oracles=oracles)
+        main_path64(config=NETWORK, oracles=oracles)
         torch.cuda.synchronize()
     counts = {}
     for rec in timer.records:
@@ -853,7 +938,7 @@ def path_sorts(n: int = N):
     five, and the radix backend's keys, stable kv and keys count=."""
     keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
-    sorter = vrs.Sorter(n)
+    sorter = vrs.Sorter(n, config=NETWORK)
     rsorter = vrs.Sorter(n, config=RADIX)
     cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
     sorts = {
@@ -877,7 +962,7 @@ def path_sorts64(n: int = N):
     rng = np.random.default_rng(SEED + 32)
     keys = to_dev(rng.integers(0, 2**64, n, dtype=np.uint64), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
-    sorter = vrs.Sorter(n, key_dtype=torch.uint64)
+    sorter = vrs.Sorter(n, key_dtype=torch.uint64, config=NETWORK)
     cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
     sorts = {
         "u64_keys": lambda: sorter.sort(keys),
@@ -1645,8 +1730,8 @@ def stages_phase(n: int = N) -> dict:
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     k64 = to_dev(np.random.default_rng(SEED + 32).integers(
         0, 2**64, n, dtype=np.uint64), "cuda")
-    net, rad = vrs.Sorter(n), vrs.Sorter(n, config=RADIX)
-    net64 = vrs.Sorter(n, key_dtype=torch.uint64)
+    net, rad = vrs.Sorter(n, config=NETWORK), vrs.Sorter(n, config=RADIX)
+    net64 = vrs.Sorter(n, key_dtype=torch.uint64, config=NETWORK)
     cases = {
         "keys": (lambda i: net.sort_timed(keys, iters=i),
                  lambda: net.sort(keys)),
@@ -1709,7 +1794,7 @@ def adaptive_phase(n: int = N, card: str = "") -> dict:
     the others must; a timed adaptive sort of uniform keys must launch the
     kernels on every timed call. Also the cost of the detection alone
     (its pass and the host read) against a full network sort."""
-    s = vrs.Sorter(n, config=SortConfig(adaptive=True))
+    s = vrs.Sorter(n, config=SortConfig(backend="network", adaptive=True))
     out = {"card": card, "n": n}
     uniform = None
     for dist in ("sorted", "reverse", "constant", "uniform"):
@@ -1764,7 +1849,7 @@ def adaptive_phase(n: int = N, card: str = "") -> dict:
     for _ in range(10):
         sorter_mod._adaptive_sort(u, lambda x: x)
     host = (time.perf_counter() - t0) / 10
-    full = time_fn(lambda: vrs.Sorter(n).sort(uniform))
+    full = time_fn(lambda: vrs.Sorter(n, config=NETWORK).sort(uniform))
     out.update(detect_ms=detect * 1e3, detect_host_ms=host * 1e3,
                full_sort_ms=full * 1e3, detect_over_sort=detect / full)
     log("[adaptive]", json.dumps(out))
@@ -1793,7 +1878,8 @@ def sweep_phase(card: str) -> dict:
     """harness.measure for the three card backends at powers of two from
     2^14 to 2^25, keys, kv and kvns, each backend after its correctness
     gate (nonstable included); one cpp point; the sizes from which the
-    network and radix beat the reference (torch.sort) backend."""
+    network and radix beat the reference (torch.sort) backend. Returns
+    the device ms by (backend, sort, n)."""
     ms = {}
     for name in ("network", "radix", "reference"):
         b = harness.make_backend(name)
@@ -1821,7 +1907,145 @@ def sweep_phase(card: str) -> dict:
         {n: ms["reference", sort, n] for n in SWEEP_SIZES})
         for name in ("network", "radix") for sort in SWEEP_SORTS}
     log("[sweep] crossover vs reference", json.dumps(cross))
-    return cross
+    return ms
+
+
+# -- phase 11b: the 64-bit sweep ----------------------------------------------
+
+SWEEP64_BACKENDS = ("network", "reference")  # radix refuses 64-bit keys
+
+
+def sweep64_inputs(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
+    """Seeded uniform uint64 keys and uint32 values; the sweep sorts
+    prefixes of them."""
+    rng = np.random.default_rng(SEED + 33)
+    keys = rng.integers(0, 2**64, n, dtype=np.uint64)
+    vals = datagen.generate_values(n, seed=SEED + 34)
+    return to_dev(keys, device), to_dev(vals, device)
+
+
+def sort_calls(sorter, keys, vals) -> dict:
+    """Sort kind -> a closure that sorts these tensors with `sorter`, on
+    the same unsorted input every call."""
+    return {"keys": lambda: sorter.sort(keys),
+            "kv": lambda: sorter.sort_key_value(keys, vals),
+            "kvns": lambda: sorter.sort_key_value(keys, vals, stable=False)}
+
+
+def sort_ms(fn) -> float:
+    """Device ms of one call, as harness.measure times a card backend."""
+    return time_fn(fn, iters=SWEEP_ITERS, warmup=1) * 1e3
+
+
+def gate64(backend: str, n: int, device="cuda") -> None:
+    """The correctness gate of a 64-bit sweep backend, as the harness's:
+    a uint64 sorter on `backend` at n against numpy, keys and stable kv
+    exact, stable=False with exact keys and the (key, value) multiset
+    kept."""
+    keys, vals = sweep64_inputs(n, device)
+    k_np, v_np = keys.cpu().numpy(), vals.cpu().numpy()
+    s = vrs.Sorter(n, key_dtype=torch.uint64, device=device,
+                   config=SortConfig(backend=backend))
+    got = {kind: fn() for kind, fn in sort_calls(s, keys, vals).items()}
+    o = np.argsort(k_np, kind="stable")
+    _expect64(got["keys"], k_np[o], f"sweep64 {backend} gate keys")
+    _expect64(got["kv"][0], k_np[o], f"sweep64 {backend} gate kv, keys")
+    _expect(got["kv"][1], v_np[o], f"sweep64 {backend} gate kv, values")
+    gk, gv = (x.cpu().numpy() for x in got["kvns"])
+    _expect64(torch.from_numpy(gk), k_np[o],
+              f"sweep64 {backend} gate kvns, keys")
+    want, have = np.lexsort((v_np, k_np)), np.lexsort((gv, gk))
+    _expect(torch.from_numpy(gv[have]), v_np[want],
+            f"sweep64 {backend} gate kvns, (key, value) multiset")
+
+
+def sweep64_phase(card: str, sizes=SWEEP_SIZES) -> dict:
+    """uint64 keys: the network against the reference backend for keys,
+    kv and kvns at powers of two from 2^14 to 2^25, each backend after its
+    gate; device time with CUDA events on the same unsorted input every
+    call; the sizes from which the network beats the reference. Returns
+    the device ms by (backend, sort, n)."""
+    keys, vals = sweep64_inputs(max(sizes), "cuda")
+    ms = {}
+    for name in SWEEP64_BACKENDS:
+        gate64(name, 1 << 16)
+        rows = []
+        for n in sizes:
+            s = vrs.Sorter(n, key_dtype=torch.uint64,
+                           config=SortConfig(backend=name))
+            for sort, fn in sort_calls(s, keys[:n], vals[:n]).items():
+                t = ms[name, sort, n] = sort_ms(fn)
+                rows.append({"n": n, "sort": sort, "gpu_ms": t,
+                             "gitems_s": n / t / 1e6})
+        log("[sweep64]", json.dumps({"backend": name, "card": card,
+                                     "keys": "uint64", "gate": "ok",
+                                     "results": rows}))
+    cross = {f"network_{sort}": crossover(
+        {n: ms["network", sort, n] for n in sizes},
+        {n: ms["reference", sort, n] for n in sizes}) for sort in SWEEP_SORTS}
+    log("[sweep64] crossover vs reference", json.dumps(cross))
+    return ms
+
+
+# -- phase 11c: what 'auto' picks ---------------------------------------------
+
+# the kernel backends that sort each width, the candidates for its engine
+ENGINES = {False: ("network", "radix"), True: ("network",)}
+
+
+def auto_report(wide: bool, ms: dict, auto: dict, sizes=SWEEP_SIZES) -> dict:
+    """For each sort kind of one key width: at each swept size the backend
+    'auto' picked and its ms (`auto`: (sort, n) -> (backend, ms)), and the
+    fastest backend of the same run's sweep (`ms`: (backend, sort, n) ->
+    ms) with its ms; the engine and cut this run measured (the candidate
+    fastest at the largest size, and its crossover against the reference)
+    beside the constants of models/sorter.py."""
+    out = {}
+    top = max(sizes)
+    for sort in SWEEP_SORTS:
+        engine = min(ENGINES[wide], key=lambda b: ms[b, sort, top])
+        cut = crossover({n: ms[engine, sort, n] for n in sizes},
+                        {n: ms["reference", sort, n] for n in sizes})
+        const_engine, const_cut = sorter_mod.AUTO[sort, wide]
+        rows = []
+        for n in sizes:
+            best = min((b for b, s, m in ms if s == sort and m == n),
+                       key=lambda b: ms[b, sort, n])
+            picked, t = auto[sort, n]
+            rows.append({"n": n, "picked": picked, "ms": t, "best": best,
+                         "best_ms": ms[best, sort, n]})
+        out[sort] = {"engine_measured": engine, "cut_measured": cut,
+                     "engine_constant": const_engine,
+                     "cut_constant": const_cut, "sizes": rows}
+    return out
+
+
+def auto_phase(card: str, ms32: dict, ms64: dict, sizes=SWEEP_SIZES) -> dict:
+    """Sorter(n) with 'auto' at every swept size, 32- and 64-bit keys: the
+    backend each kind picks and its device ms (the 32-bit sweep's inputs,
+    and the 64-bit sweep's), reported by `auto_report` against the same
+    run's sweeps. Report only: no time gates it."""
+    k64, v64 = sweep64_inputs(max(sizes), "cuda")
+    out = {}
+    for wide, ms in ((False, ms32), (True, ms64)):
+        auto = {}
+        for n in sizes:
+            if wide:
+                k, v = k64[:n], v64[:n]
+            else:  # harness.measure's inputs
+                k = to_dev(datagen.generate_keys(n, seed=0), "cuda")
+                v = to_dev(datagen.generate_keys(n, seed=1), "cuda")
+            s = vrs.Sorter(n, key_dtype=torch.uint64 if wide
+                           else torch.uint32)
+            picks = kind_backends(s)
+            for sort, fn in sort_calls(s, k, v).items():
+                auto[sort, n] = (picks[sort], sort_ms(fn))
+        width = "u64" if wide else "u32"
+        report = auto_report(wide, ms, auto, sizes)
+        for sort, r in report.items():
+            log(f"[auto] {width} {sort}", json.dumps({"card": card, **r}))
+        out[width] = report
+    return out
 
 
 # -- phase 12: a profiler trace ------------------------------------------------
@@ -1847,7 +2071,7 @@ def profile_phase(n: int = N) -> dict:
     of the traced window (the union of device activity over the window
     of the sorts)."""
     keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
-    s = vrs.Sorter(n)
+    s = vrs.Sorter(n, config=NETWORK)
     s.sort(keys)
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as d:
@@ -1893,18 +2117,43 @@ def profile_phase(n: int = N) -> dict:
     return out
 
 
-def _path_launches(config: SortConfig | None, kernels, oracles) -> dict:
+def _path_launches(config: SortConfig, kernels, oracles) -> dict:
     """Drive one backend's main path with the counters zeroed just before
     and read just after; every kernel of `kernels` must have launched."""
     reset_launches()
     main_path(config=config, oracles=oracles)
     torch.cuda.synchronize()
     launches = launch_counts()
-    log("[launches]", "radix" if config else "network", json.dumps(launches))
+    log("[launches]", config.backend, json.dumps(launches))
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
         raise AssertionError(f"not launched on the main path: {missing}")
     return {k: launches[k] for k in kernels}
+
+
+BACKEND_KERNELS = {"network": NETWORK_KERNELS, "radix": RADIX_KERNELS,
+                   "reference": ()}
+
+
+def _auto_launches(oracles) -> dict:
+    """Drive the 'auto' main path, 32- and 64-bit, with the counters zeroed
+    just before and read just after: every kernel of each backend 'auto'
+    picked must have launched, and no kernel of a backend it did not pick
+    (each sort's launches are also held to its kind's backend inside the
+    path). Returns the launches per kernel."""
+    reset_launches()
+    picked = {"u32": main_path(oracles=oracles),
+              "u64": main_path64(oracles=oracles)}
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    log("[launches] auto", json.dumps({"backends": picked, **launches}))
+    used = {k for p in picked.values() for b in p.values()
+            for k in BACKEND_KERNELS[b]}
+    wrong = {k: v for k, v in launches.items() if (k in used) != (v > 0)}
+    if wrong:
+        raise AssertionError(f"the auto path launched {launches} for the "
+                             f"backends {picked}")
+    return launches
 
 
 def main() -> int:
@@ -1923,9 +2172,10 @@ def main() -> int:
     err = check_kernels(by_mode=err_carry)
 
     oracles = {}
-    launches = _path_launches(None, NETWORK_KERNELS, oracles)
+    launches = _path_launches(NETWORK, NETWORK_KERNELS, oracles)
     launches.update(_path_launches(RADIX, RADIX_KERNELS, oracles))
     carries = _path_launches64(oracles)
+    auto_launches = _auto_launches(oracles)
     del oracles
 
     sorts, keys, vals = path_sorts()
@@ -1946,7 +2196,7 @@ def main() -> int:
 
     stages_phase()
     adaptive_phase(card=card)
-    sweep_phase(card)
+    auto_phase(card, sweep_phase(card), sweep64_phase(card))
     profile_phase()
 
     def figures(p):
@@ -1960,6 +2210,7 @@ def main() -> int:
         row = {"name": label, "route": "cuda", "source": source,
                "replaces": replaces, "status": status,
                "launches": launches[key], "max_abs_err": err[key],
+               "auto_launches": auto_launches[key],
                **figures(per[key])}
         # the 64-bit carries: launches on the 64-bit path, times over its
         # sorts (path_sorts64)

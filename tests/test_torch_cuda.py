@@ -26,6 +26,7 @@ from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
 from vulkan_radix_sort_tpu_torch.parallel import scaling
 from vulkan_radix_sort_tpu_torch.bench import harness
+from vulkan_radix_sort_tpu_torch.models import sorter
 from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
 
 
@@ -235,7 +236,7 @@ def test_cuda_sorter_matches_numpy(cuda_device, dtype):
         k = _u32(n, 9, 1 << 9).view(
             np.uint32 if dtype == torch.uint32 else np.int32)
     v = datagen.generate_values(n, seed=10)
-    s = vrs.Sorter(n, key_dtype=dtype)
+    s = vrs.Sorter(n, key_dtype=dtype, config=SortConfig(backend="network"))
     assert s.backend == "network"
     dk = torch.from_numpy(k).to(cuda_device)
     dv = torch.from_numpy(v).to(cuda_device)
@@ -518,7 +519,7 @@ def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
         k = u.view(np.int64) if dtype == torch.int64 else u
         u = u ^ np.uint64(1 << 63) if dtype == torch.int64 else u
     v = datagen.generate_values(n, seed=23)
-    s = vrs.Sorter(n, key_dtype=dtype)
+    s = vrs.Sorter(n, key_dtype=dtype, config=SortConfig(backend="network"))
     dk = torch.from_numpy(k).to(cuda_device)
     dv = torch.from_numpy(v).to(cuda_device)
     got = s.sort(dk).cpu().numpy().view(np.uint64)
@@ -613,7 +614,7 @@ def test_cuda_adaptive_network(cuda_device, dist):
     launch on the fast paths, launches on the others (uniform keys, and
     reverse keys in the key-value sort, which takes no flip)."""
     n = (1 << 20) + 3
-    s = vrs.Sorter(n, config=SortConfig(adaptive=True))
+    s = vrs.Sorter(n, config=SortConfig(backend="network", adaptive=True))
     k = datagen.generate_keys(n, seed=33, distribution=dist)
     dk = torch.from_numpy(k).to(cuda_device)
     bk.reset_launches()
@@ -643,7 +644,7 @@ def test_cuda_harness_measure(cuda_device, name):
 
 @pytest.mark.cuda
 def test_cuda_profiling_trace(cuda_device, tmp_path):
-    s = vrs.Sorter(1 << 20)
+    s = vrs.Sorter(1 << 20, config=SortConfig(backend="network"))
     k = torch.from_numpy(_u32(1 << 20, 35)).to(cuda_device)
     s.sort(k)
     with profiling.trace(str(tmp_path)) as prof:
@@ -660,3 +661,48 @@ def test_cuda_launch_timer_records_events(cuda_device):
         tbit.sort_u32(k)
     secs = t.seconds()
     assert len(secs) == len(t.records) > 0 and all(x > 0 for x in secs)
+
+
+AUTO_KERNELS = {"network": {"chunk", "fused", "cross", "local", "gate"},
+                "radix": {"block_sort", "place"}, "reference": set()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,wide", list(sorter.AUTO), ids=str)
+def test_cuda_auto_by_size_and_kind(cuda_device, kind, wide):
+    """Sorter(n) with 'auto' on the card at the kind's cut - 1 and at the
+    cut (at 2^25 where the kind has none): the kind's backend is the one
+    the table gives, one sort of that kind launches that backend's kernels
+    and no other, and the answer is numpy's (stable=False: the network's
+    (key, value) order, else the stable one)."""
+    engine, cut = sorter.AUTO[kind, wide]
+    dtype = torch.uint64 if wide else torch.uint32
+    for n, want in (((cut - 1, "reference"), (cut, engine)) if cut
+                    else ((1 << 25, "reference"),)):
+        s = vrs.Sorter(n, key_dtype=dtype)
+        got = {"keys": s.backend, "kv": s.backend_kv,
+               "kvns": s.backend_kvns}[kind]
+        assert got == want
+        if wide:
+            k = _keys64(n, 40)
+        else:
+            k = _u32(n, 40, 1 << 20)
+        v = datagen.generate_values(n, seed=41)
+        dk = torch.from_numpy(k).to(cuda_device)
+        dv = torch.from_numpy(v).to(cuda_device)
+        with timing.LaunchTimer() as t:
+            out = (s.sort(dk) if kind == "keys" else
+                   s.sort_key_value(dk, dv, stable=kind == "kv"))
+            torch.cuda.synchronize()
+        names = {x for rec in t.records for x in rec["names"]}
+        if want == "network":
+            assert names and names <= AUTO_KERNELS["network"]
+        else:
+            assert names == AUTO_KERNELS[want]
+        order = (np.lexsort((v, k)) if kind == "kvns" and want == "network"
+                 else np.argsort(k, kind="stable"))
+        if kind == "keys":
+            np.testing.assert_array_equal(out.cpu().numpy(), k[order])
+        else:
+            np.testing.assert_array_equal(out[0].cpu().numpy(), k[order])
+            np.testing.assert_array_equal(out[1].cpu().numpy(), v[order])

@@ -189,7 +189,8 @@ def test_reference_backend64_matches_jax_xla():
     against the JAX package's 'xla' backend: keys, stable key-value, and
     count= on both."""
     port, jax_ = _pair(torch.int64, backend="reference")
-    assert port.backend == "reference"
+    assert (port.backend, port.backend_kv, port.backend_kvns) == (
+        "reference",) * 3
     k = _keys(torch.int64, seed=9)
     v = datagen.generate_values(N, seed=10)
     tk, tv = torch.from_numpy(k), torch.from_numpy(v)
@@ -240,5 +241,6 @@ def test_radix_refuses_64_bit_keys():
             with pytest.raises(NotImplementedError, match="radix"):
                 vrs.Sorter(16, key_dtype=dtype, device="cpu",
                            config=SortConfig(backend=backend))
-        assert vrs.Sorter(16, key_dtype=dtype, device="cpu").backend == \
-            "reference"
+        s = vrs.Sorter(16, key_dtype=dtype, device="cpu")
+        assert (s.backend, s.backend_kv, s.backend_kvns) == (
+            "reference",) * 3

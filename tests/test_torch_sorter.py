@@ -110,7 +110,8 @@ def test_count_matches_jax(path, count_kind):
 
 def test_reference_backend_matches_jax_xla():
     port = vrs.Sorter(4096, device="cpu")
-    assert port.backend == "reference"
+    assert (port.backend, port.backend_kv, port.backend_kvns) == (
+        "reference",) * 3
     jax_ = jvrs.Sorter(4096, config=jvrs.SortConfig(backend="xla"))
     k = _keys(torch.uint32, seed=5)
     v = datagen.generate_values(N, seed=6)
@@ -301,17 +302,19 @@ def test_chip_smoke_dist2_phase_on_the_cpu(monkeypatch):
 def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase,
     K3 and K4 through the half merge) and main-path phases, rehearsed at a
-    small size on the CPU (plain versions): the network through 'auto',
-    then the radix backend, against one set of oracles; then the 64-bit
-    path."""
+    small size on the CPU (plain versions): the network, then the radix
+    backend, then 'auto' with the card's decisions at 2^9 times the size
+    (so each kind takes the engine it takes at 2^25 on the card), against
+    one set of oracles, each sort's recorded launches held to its kind's
+    backend; then the 64-bit path on the network and through 'auto'; then
+    the 64-bit sweep's gates, and the '[auto]' report on a made-up
+    sweep."""
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     from vulkan_radix_sort_tpu_torch.models import sorter
 
-    monkeypatch.setattr(sorter, "_pick_backend", lambda cfg, dev: (
-        "network" if cfg.backend == "auto" else cfg.backend))
     err = cs.check_kernels(sizes=((1 << 16, True), (1 << 16, False)),
                            device="cpu")
     err["local_gated"] = cs.check_slot_merges(slot=1 << 12, device="cpu")
@@ -320,8 +323,41 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     oracles = {}
     kw = dict(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu",
               oracles=oracles)
-    cs.main_path(**kw)
+    assert set(cs.main_path(config=cs.NETWORK, **kw).values()) == {
+        "network"}
     shared = len(oracles)
-    cs.main_path(config=cs.RADIX, **kw)
-    assert len(oracles) == shared  # the radix run computes no new oracle
-    cs.main_path64(n=1 << 15, n_ragged=(1 << 14) + 4096, device="cpu")
+    assert set(cs.main_path(config=cs.RADIX, **kw).values()) == {"radix"}
+    real = sorter._pick_backend
+    monkeypatch.setattr(
+        sorter, "_pick_backend",
+        lambda cfg, device, max_n=None, kind="keys", wide=False: real(
+            cfg, torch.device("cuda"), max_n << 9, kind, wide))
+    picked = cs.main_path(**kw)
+    assert picked == {k: real(SortConfig(), torch.device("cuda"), 1 << 25,
+                              k) for k in ("keys", "kv", "kvns")}
+    assert len(oracles) == shared  # the later runs compute no new oracle
+    kw64 = dict(n=1 << 15, n_ragged=(1 << 14) + 4096, device="cpu")
+    cs.main_path64(config=cs.NETWORK, **kw64)
+    cs.main_path64(**kw64)
+    monkeypatch.undo()
+    for backend in cs.SWEEP64_BACKENDS:
+        cs.gate64(backend, 1 << 12, device="cpu")
+    # a made-up sweep: radix fastest from 2^16 on (network second), the
+    # reference fastest below; 'auto' picked the reference below 2^16
+    sizes = (1 << 14, 1 << 15, 1 << 16, 1 << 17)
+    ms = {(b, s, n): {"radix": 1.0, "network": 2.0, "reference": 1.5}[b]
+          if n >= 1 << 16 else {"radix": 3.0, "network": 2.0,
+                                "reference": 1.0}[b]
+          for b in ("network", "radix", "reference") for s in cs.SWEEP_SORTS
+          for n in sizes}
+    auto = {(s, n): ("radix" if n >= 1 << 16 else "reference", 1.0)
+            for s in cs.SWEEP_SORTS for n in sizes}
+    report = cs.auto_report(False, ms, auto, sizes)
+    for kind, r in report.items():
+        assert (r["engine_measured"], r["cut_measured"]) == ("radix", 1 << 16)
+        assert (r["engine_constant"], r["cut_constant"]) == \
+            sorter.AUTO[kind, False]
+        assert [x["best"] for x in r["sizes"]] == \
+            ["reference"] * 2 + ["radix"] * 2
+        assert [x["picked"] for x in r["sizes"]] == \
+            [x["best"] for x in r["sizes"]]

@@ -1,19 +1,24 @@
 """vulkan_radix_sort_tpu_torch — the sort engine on PyTorch and CUDA (Hopper).
 
 The PyTorch port of `vulkan_radix_sort_tpu`, beside it in this repository.
-Its main path is the same bitonic compare-exchange network, with each TPU
-(Pallas) kernel written again by hand in CUDA C++ for sm_90a
-(`csrc/bitonic.cu`, built with nvcc on first use). `backend="radix"` is the
-LSD radix sort the reference library is named for, over two more such
-kernels, the block sort and the placement (`csrc/radix.cu`); a `torch.sort`
-reference backend completes the set. It sorts uint32, int32 and float32
-keys, key-value pairs (stable, or on the network non-stable by (key,
-value)), and dynamic counts (`count=`, the reference's indirect path), on a
-CUDA device unless asked for the CPU, where each kernel's plain PyTorch
-version runs instead. uint64, int64 and float64 keys sort the same ways
-on the network (as (hi, lo) uint32 words, key-value in the three-word
-carries of `csrc/network_w64.cu`) and the reference backend; the radix
-backend refuses them. `SortConfig(adaptive=True)` answers sorted,
+Each TPU (Pallas) kernel is written again by hand in CUDA C++ for sm_90a
+and built with nvcc on first use: the bitonic compare-exchange network
+(`backend="network"`, `csrc/bitonic.cu`, `csrc/fused.cu`) and the LSD
+radix sort the reference library is named for (`backend="radix"`, a block
+sort and a placement kernel, `csrc/radix.cu`); a `torch.sort` reference
+backend completes the set. The default, `backend="auto"`, picks per kind
+of sort (keys, stable and non-stable key-value) and key width from the
+sorter's size, as the JAX package's does: on a card the reference below a
+cut measured on the H100 and the kind's engine from it, on the CPU the
+reference (`models.sorter.AUTO`). The one-shot `sort` and
+`sort_key_value` size their sorter by the call's n. It sorts uint32,
+int32 and float32 keys, key-value pairs (stable, or on the network
+non-stable by (key, value)), and dynamic counts (`count=`, the
+reference's indirect path), on a CUDA device unless asked for the CPU,
+where each kernel's plain PyTorch version runs instead. uint64, int64
+and float64 keys sort the same ways on the network (as (hi, lo) uint32
+words, key-value in the three-word carries of `csrc/network_w64.cu`) and
+the reference backend; the radix backend refuses them. `SortConfig(adaptive=True)` answers sorted,
 reverse-sorted and constant inputs without the engine. Measurement:
 `Sorter.sort_timed` / `sort_key_value_timed` (per-stage device times),
 `utils.profiling` (a torch.profiler trace), and the bench harness,

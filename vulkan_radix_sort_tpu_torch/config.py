@@ -98,7 +98,9 @@ class SortConfig:
     backend: 'network' (the bitonic kernels), 'radix' (the LSD radix
         kernels; 'pallas' is an alias, stored as 'radix'), 'reference'
         (torch.sort, the counterpart of the JAX package's 'xla'), or
-        'auto' (network on a CUDA device, reference on the CPU).
+        'auto': on a CUDA device, per kind of sort and key width, the
+        reference below a cut measured on the H100 and the kind's engine
+        from it (`models.sorter.AUTO`); on the CPU the reference.
     adaptive: the JAX package's sorted-input fast paths. Sorts without
         `count=` first check the keys' order in one pass and one host
         read (a sync with the card): non-decreasing keys come back as a

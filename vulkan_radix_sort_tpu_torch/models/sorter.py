@@ -17,6 +17,13 @@ API, as in the JAX package) uint64, int64 and float64, which sort as (hi,
 lo) uint32 word pairs on the network and the reference backend; the radix
 backend refuses them.
 
+Each sorter picks one backend per kind of sort (keys, stable key-value,
+stable=False key-value) from its max_n: `backend`, `backend_kv` and
+`backend_kvns`. A named backend serves every kind; 'auto' is the
+reference backend below the kind's measured cut and the kind's engine
+from it (`AUTO`, `_pick_backend`), as the JAX package's 'auto' is XLA's
+sort below its cuts and the network from them.
+
 A sorter lives on one device, the card unless the caller asks for the CPU.
 A tensor on another device is refused, never moved. PyTorch runs eagerly,
 so there is no compiled pipeline to cache: the kernels build once per
@@ -35,14 +42,53 @@ from ..ops import bitonic, bitops, radix, reference
 from ..utils.timing import StageTimes, time_fn
 
 
-def _pick_backend(cfg: SortConfig, device: torch.device) -> str:
-    """'auto' is the network on a CUDA device at every size (no crossover
-    against torch.sort or the radix backend has been measured on the H100
-    yet) and the reference backend on the CPU. 'radix' is asked for by
-    name (or by its alias 'pallas')."""
+# 'auto' on a CUDA device, per sort kind and key width: (engine, cut).
+# Below the cut the reference backend (a torch.sort and a gather) runs,
+# from the cut the engine; a cut of None means the engine did not beat
+# the reference at 2^25, so 'auto' is the reference at every n. The
+# engine is the kernel backend with the most GItems/s at 2^25 among those
+# that sort the kind (network and radix for 32-bit keys; the network
+# alone for 64-bit keys, which radix refuses); the cut is the smallest
+# swept n (2^14..2^25) from which it beats the reference at every larger
+# swept size (chip_smoke.crossover), the larger of two runs, since below
+# 2^22 times move up to 2x between runs. Two runs of chip_smoke.py on one
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5):
+#   [sweep] crossover vs reference: radix_keys 2^22 and 2^22, radix_kv
+#     2^22 and 2^23, radix_kvns 2^23 and 2^22; at 2^25 radix 1.92-1.96 /
+#     2.96 / 2.95-2.96 ms (keys / kv / kvns), the network 4.66 /
+#     13.4-13.5 / 9.77-9.80, the reference 5.32-5.35 / 6.33-6.37 /
+#     6.35-6.36;
+#   [sweep64] crossover vs reference: network_keys, _kv, _kvns null in
+#     both; at 2^25 the network 11.1 / 19.8-19.9 / 16.0 ms, the reference
+#     5.71-5.73 / 6.76-6.77 / 6.75-6.76.
+AUTO = {
+    ("keys", False): ("radix", 1 << 22),
+    ("kv", False): ("radix", 1 << 23),
+    ("kvns", False): ("radix", 1 << 23),
+    ("keys", True): ("network", None),
+    ("kv", True): ("network", None),
+    ("kvns", True): ("network", None),
+}
+
+
+def _pick_backend(cfg: SortConfig, device: torch.device,
+                  max_n: int | None = None, kind: str = "keys",
+                  wide: bool = False) -> str:
+    """The backend a sorter of `max_n` keys (64-bit with `wide`) runs for
+    one kind of sort: 'keys', 'kv' (stable key-value) or 'kvns'
+    (stable=False). A named backend passes through ('pallas' is already
+    'radix'). 'auto' is the reference backend on the CPU, and on a CUDA
+    device the reference below the kind's cut and its engine from the
+    cut (AUTO). An unknown kind raises KeyError on every device."""
     if cfg.backend != "auto":
         return cfg.backend
-    return "network" if device.type == "cuda" else "reference"
+    # look the kind up before the device check, so that a bad caller
+    # fails on the CPU too, as in the JAX package
+    engine, cut = AUTO[kind, wide]
+    if device.type != "cuda" or cut is None or (max_n is not None
+                                                and max_n < cut):
+        return "reference"
+    return engine
 
 
 def _order_view(u: torch.Tensor) -> torch.Tensor:
@@ -107,7 +153,8 @@ def _resolve_device(device) -> torch.device:
 
 class Sorter:
     """Ascending sorts of 32- and 64-bit keys and key-value pairs (uint32
-    values) on one device."""
+    values) on one device, each kind on its own backend (`backend`,
+    `backend_kv`, `backend_kvns`)."""
 
     def __init__(self, max_n: int, key_dtype=torch.uint32,
                  config: SortConfig | None = None, device="cuda"):
@@ -122,11 +169,18 @@ class Sorter:
         self.key_dtype = key_dtype
         self.device = _resolve_device(device)
         self._encode, self._decode = encoders[key_dtype]
-        self.backend = _pick_backend(self.config, self.device)
+        # one backend per kind of sort, decided by max_n, not by the n of
+        # each call (as in the JAX package)
+        self.backend, self.backend_kv, self.backend_kvns = (
+            _pick_backend(self.config, self.device, self.max_n, kind,
+                          self.wide) for kind in ("keys", "kv", "kvns"))
         if self.wide and self.backend == "radix":
             raise NotImplementedError(
                 "the radix backend does not support 64-bit keys; use "
                 "backend='network' (or 'auto'/'reference')")
+
+    def _backend_pairs(self, stable: bool) -> str:
+        return self.backend_kv if stable else self.backend_kvns
 
     # -- storage sizing (analog of h.in:279-308) ---------------------------
 
@@ -141,15 +195,17 @@ class Sorter:
         keys, torch.sort's int64 values and indices, and the gathered
         uint32 outputs. 64-bit keys, any backend: the padded (hi, lo) word
         buffers (plus the index tiebreak and values for key-value) and the
-        8-byte input and output keys, as in the JAX package.
+        8-byte input and output keys, as in the JAX package. The backend
+        sized is the one the sort runs: `backend_kv` for key-value.
         """
         if self.wide:
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (4 if key_value else 2) + 2 * 8 * self.max_n
-        if self.backend == "network":
+        backend = self.backend_kv if key_value else self.backend
+        if backend == "network":
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (3 if key_value else 1)
-        if self.backend == "radix":
+        if backend == "radix":
             cfg = self.config
             n = round_up(self.max_n, cfg.block)
             tables = 2 * (n // cfg.block) * cfg.radix + 2 * cfg.radix
@@ -211,7 +267,7 @@ class Sorter:
         return self._decode(bitops.select_u32(live, k, u))
 
     def _sort32(self, u: torch.Tensor) -> torch.Tensor:
-        """Keys-only sort of encoded uint32 keys on the backend."""
+        """Keys-only sort of encoded uint32 keys on `backend`."""
         if self.backend == "network":
             return bitonic.sort_u32(u, chunk=self.config.chunk_keys)
         if self.backend == "radix":
@@ -220,12 +276,13 @@ class Sorter:
 
     def _sort_pairs32(self, u: torch.Tensor, values: torch.Tensor,
                       stable: bool):
-        """Key-value sort of encoded uint32 keys on the backend."""
-        if self.backend == "network":
+        """Key-value sort of encoded uint32 keys on the kind's backend."""
+        backend = self._backend_pairs(stable)
+        if backend == "network":
             return bitonic.sort_pairs_u32(u, values,
                                           chunk=self.config.chunk_carry,
                                           stable=stable)
-        if self.backend == "radix":
+        if backend == "radix":
             return radix.sort_pairs_u32(u, values, config=self.config)
         return reference.sort_pairs(u, values)
 
@@ -233,13 +290,16 @@ class Sorter:
                        count=None, stable: bool = True):
         """Ascending key-value sort; values ride as a separate uint32 buffer.
 
-        stable=True matches the reference's std::stable_sort contract.
-        stable=False lets the network compare (key, value) and drop the
-        index carry: equal keys then come out by ascending value. The
-        radix and reference backends are stable either way, which is also
-        a valid answer to stable=False. With SortConfig.adaptive, keys
-        already in non-decreasing order come back as they are (with
-        copies), the stable answer and a valid non-stable one.
+        stable=True matches the reference's std::stable_sort contract
+        (on `backend_kv`). stable=False (on `backend_kvns`) lets the
+        network compare (key, value) and drop the index carry: equal keys
+        then come out by ascending value. The radix and reference backends
+        are stable either way, which is also a valid answer to
+        stable=False: so under 'auto' the order of equal keys may change
+        at a cut, and only the multiset of pairs per key is the contract.
+        With SortConfig.adaptive, keys already in non-decreasing order
+        come back as they are (with copies), the stable answer and a
+        valid non-stable one.
         """
         self._check(keys, values)
         u = self._encode(keys)
@@ -255,12 +315,13 @@ class Sorter:
             k, v = self._sort_pairs64(u, values, count, stable)
             return self._decode(k), v
         cnt = bitonic.count_tensor(count, self.device)
-        if self.backend == "reference":
+        backend = self._backend_pairs(stable)
+        if backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
             return self._decode(k), v
         live = self._live(u.numel(), cnt)
         masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-        if self.backend == "radix":
+        if backend == "radix":
             # stable either way: the masked tail, behind every genuine
             # 0xFFFFFFFF key in input order, stays behind it
             k, v = radix.sort_pairs_u32(masked, values, config=self.config)
@@ -308,7 +369,7 @@ class Sorter:
         chunk = self.config.chunk_carry
         cnt = None if count is None else bitonic.count_tensor(count,
                                                               self.device)
-        if self.backend == "reference":
+        if self._backend_pairs(stable) == "reference":
             return (reference.sort_pairs64(u, values) if cnt is None
                     else reference.sort_pairs64_count(u, values, cnt))
         if cnt is None:
@@ -360,11 +421,11 @@ class Sorter:
         return t
 
     def sort_timed(self, keys: torch.Tensor, iters: int = 10) -> StageTimes:
-        """Times of `sort(keys)` on the card: totals, and on the network
-        and radix backends per stage (`bitonic.stage_times*`,
-        `radix.stage_times`, whose dict lands in `extra`). The reference
-        backend fills the totals only. A CPU sorter raises: nothing here
-        times the CPU."""
+        """Times of `sort(keys)` on the card: totals, and where `backend`
+        (the keys kind's) is the network or radix per stage
+        (`bitonic.stage_times*`, `radix.stage_times`, whose dict lands in
+        `extra`). The reference backend fills the totals only. A CPU
+        sorter raises: nothing here times the CPU."""
         self._check(keys)
         t = self._totals(self.sort, (keys,), iters)
         u = self._encode(keys)
@@ -388,13 +449,15 @@ class Sorter:
                              stable: bool = True,
                              iters: int = 10) -> StageTimes:
         """`sort_timed` for `sort_key_value(keys, values, stable=stable)`;
-        per stage on the network only (the radix backend times a keys
-        pass), `extra["mode"]` naming the carry that ran."""
+        per stage only where the kind's backend (`backend_kv`, or
+        `backend_kvns` for stable=False) is the network (the radix
+        backend's stage times are of a keys pass), `extra["mode"]` naming
+        the carry that ran."""
         self._check(keys, values)
         t = self._totals(lambda k, v: self.sort_key_value(k, v,
                                                           stable=stable),
                          (keys, values), iters)
-        if self.backend != "network":
+        if self._backend_pairs(stable) != "network":
             return t
         u = self._encode(keys)
         chunk = self.config.chunk_carry

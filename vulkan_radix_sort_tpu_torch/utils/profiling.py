@@ -44,7 +44,8 @@ def trace(log_dir: str):
 
 def stage_report(keys: torch.Tensor, config=None, iters: int = 5) -> str:
     """Human-readable per-stage breakdown of one sort of `keys` on their
-    device (a card), reference-style."""
+    device (a card), reference-style, headed by the backend that ran: the
+    sorter's keys backend, which 'auto' picks by the keys' n."""
     from ..models.sorter import Sorter
 
     s = Sorter(keys.numel(), key_dtype=keys.dtype, config=config,
