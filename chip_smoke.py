@@ -17,7 +17,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      the chunk and local kernels at every chunk from 256 to the carry's
      register cap, the fused kernel at every group from 512 to the cap)
      and at the main path's 2^25 shapes. The radix backend's
-     (block sort K7, placement K8) at 2^20 at every block from 512 to
+     (block sort K7, the spine, placement K8 with the pass's shift and
+     the spine kernel's offsets) at 2^20 at every block from 512 to
      16384 and both digit widths, with uniform keys, few distinct digits
      and one key only, and at the main path's 2^25 shapes, keys and
      key-value, with a ragged last block of sentinel pads;
@@ -26,9 +27,9 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value) at
      n = 2^25 and the other shapes below, each bitwise equal to a numpy
      oracle computed once for all three; each sort's launches, read from
-     a launch recorder, must be those of its kind's backend (radix: K7
-     and K8 exactly num_passes times; network: network kernels only;
-     reference: none); the kernels' launch counters are zeroed just
+     a launch recorder, must be those of its kind's backend (radix: K7,
+     the spine and K8 exactly num_passes times; network: network kernels
+     only; reference: none); the kernels' launch counters are zeroed just
      before each backend's run and read just after, and every kernel of
      that backend must have launched; then the 64-bit path (uint64, int64
      and float64 keys) through the same entry points at 2^25, on the
@@ -97,9 +98,13 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      measured beside the constants of models/sorter.py (report only);
  12. profile: one profiling.trace around network keys sorts at 2^25:
      device time by kernel name (K1-K4) and the device's busy share of
-     the traced window.
+     the traced window; then one around a radix keys sort at 2^25, whose
+     device work from its first K7 to its last K8 must be K7, the spine
+     and K8 once a pass and nothing else.
 Then the `kernels` JSON line (each network row with its 64-bit carries'
-figures under "w3" and "w4_big"; `launches` counts the launches on the
+figures under "w3" and "w4_big"; K7 and K8 with their keys and kv
+figures under "keys" and "kv", K8 with the spine's under "spine";
+`launches` counts the launches on the
 path of the kernel's backend, `auto_launches` those on the 'auto'
 path), the card's name and power limit as nvidia-smi gives them, and
 last the {"ok": true, ...} result line.
@@ -125,7 +130,6 @@ from vulkan_radix_sort_tpu_torch.config import (
     RADIX_THREADS, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import bitonic, bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
-from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
 from vulkan_radix_sort_tpu_torch.parallel import scaling
@@ -159,9 +163,11 @@ OPS_PER_CE = {"keys": 2, "pairs": 2 + 4, "stable": 2 + 6, "w3": 3 + 6,
               "w4_big": 3 + 8}
 # integer operations per key of a radix kernel. Block sort: the digit (a
 # shift and a mask), its count, and the add of its rank to its digit's
-# base. Placement: the add of the run's offset and the subtraction of the
-# run's start.
-OPS_PER_KEY = {"block_sort": 4, "place": 2}
+# base. Placement: the digit (a shift and a mask) and the add of its
+# delta. Spine, per histogram entry: the add to the column's running sum
+# in each of its two reads, and the add of the base.
+OPS_PER_KEY = {"block_sort": 4, "place": 3}
+OPS_PER_SPINE_ENTRY = 3
 
 BITONIC_CU = "vulkan_radix_sort_tpu_torch/csrc/bitonic.cu"
 FUSED_CU = "vulkan_radix_sort_tpu_torch/csrc/fused.cu"
@@ -191,9 +197,13 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
                    "16-byte copies, one scatter"),
     "place": ("K8 radix placement", RADIX_CU,
               "vulkan_radix_sort_tpu/ops/stream_place.py:228",
-              "first design: each key written at its run's offset"),
+              "redesigned: digit from the key, one shared delta lookup a "
+              "key, 512-key tiles with every load issued first; the spine "
+              "one cluster launch"),
 }
-RADIX_KERNELS = ("block_sort", "place")
+# the radix kernels in launch order; the spine is K8's column accumulation
+# (the TPU kernel's own), so the K8 row carries it
+RADIX_KERNELS = ("block_sort", "spine", "place")
 MERGE_KERNELS = ("local_gated",)
 NETWORK_KERNELS = tuple(k for k in KERNELS
                         if k not in RADIX_KERNELS + MERGE_KERNELS)
@@ -235,10 +245,11 @@ def launch_counts() -> dict[str, int]:
 # from 2^8 to the register cap, 8 for keys, 7 for each two-word carry and
 # 6 for each three-word one; fused: G from 2^9 to the cap, 7 + 6 + 6 +
 # 5 + 5; cross: one per carry; block sort: keys or kv, 4 to 32 keys a
-# thread, 4- or 8-bit digits.
+# thread, 4- or 8-bit digits; placement: keys or kv; spine: one cluster
+# size.
 INSTANTIATIONS = {"chunk_kernel": 34, "local_kernel": 34, "cross_kernel": 5,
                   "fused_kernel": 29, "block_sort_kernel": 16,
-                  "place_kernel": 2}
+                  "place_kernel": 2, "spine_kernel": 1}
 
 
 def build() -> None:
@@ -370,10 +381,12 @@ def _radix_cases(extra: bool):
 
 def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
                         device="cuda") -> dict[str, int]:
-    """K7 and K8 against their plain versions on the same seeded inputs,
-    keys and key-value (`_radix_cases`): at 2^20 at every block and both
-    digit widths, and at the main path's 2^25 shapes. K8 takes K7's plain
-    output, so its runs are real. Returns max |err| per kernel."""
+    """K7, the spine and K8 against their plain versions on the same
+    seeded inputs, keys and key-value (`_radix_cases`): at 2^20 at every
+    block and both digit widths, and at the main path's 2^25 shapes. The
+    spine and K8 take K7's plain output, so their runs are real; K8 takes
+    the pass's shift and the spine kernel's offsets, as a radix pass
+    launches it. Returns max |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     err = {name: 0 for name in RADIX_KERNELS}
     for n, extra in sizes:
@@ -389,16 +402,19 @@ def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
                     got7 = k7.block_sort(keys, vals, **kw)
                     want7 = k7.block_sort_plain(keys, vals, **kw)
                     y, hist = want7[0], want7[-1]
-                    args8 = (y, hist, radix._spine(hist),
-                             want7[1] if kv else None)
+                    got_sp = k8.spine(hist)
+                    want_sp = k8.spine_plain(hist)
+                    args8 = (y, hist, want_sp[0], want7[1] if kv else None)
                     kw8 = dict(config=cfg, key_value=kv)
-                    got8 = k8.stream_place(*args8, **kw8)
+                    got8 = k8.stream_place(*args8, **kw8, shift=shift,
+                                           offsets=got_sp[1])
                     want8 = k8.stream_place_plain(*args8, **kw8)
                     if not kv:
                         got8, want8 = (got8,), (want8,)
                     sync(device)
                     threads, per = k7.sort_geometry(block)
                     for name, got, want in (("block_sort", got7, want7),
+                                            ("spine", got_sp, want_sp),
                                             ("place", got8, want8)):
                         e = _max_abs_err(got, want)
                         err[name] = max(err[name], e)
@@ -413,7 +429,8 @@ def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
                                 f"{name} block={block} bits={bits} "
                                 f"shift={shift}: the kernel differs from "
                                 "its plain version")
-                    del keys, vals, got7, want7, got8, want8, args8
+                    del keys, vals, got7, want7, got_sp, want_sp, got8, \
+                        want8, args8
     return err
 
 
@@ -504,7 +521,8 @@ def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
 def check_backend_launches(backend: str, got: dict[str, int],
                            config: SortConfig, what: str) -> None:
     """One sort's launches against the backend that ran it: radix launches
-    K7 and K8 exactly num_passes times each and no network kernel; the
+    K7, the spine and K8 exactly num_passes times each and no network
+    kernel; the
     network launches network kernels and no radix kernel; the reference
     backend launches no kernel."""
     net = sum(got.get(k, 0) for k in NETWORK_KERNELS + MERGE_KERNELS)
@@ -834,8 +852,13 @@ def bound_ms(rec) -> tuple[float, str]:
     """Least time for a launch's work: HBM bytes (each input read and each
     output written once) or int32 operations, whichever is larger. Network:
     every element of the units it runs. K7: keys (and values) in and out
-    plus the histogram out. K8: keys (and values), the histogram and the
-    run offsets in, keys (and values) out."""
+    plus the histogram out. Spine: the histogram in, the run offsets and
+    g out. K8: keys (and values), the histogram and the run offsets in,
+    keys (and values) out."""
+    if rec["names"][0] == "spine":
+        entries = rec["nblocks"] * rec["radix"]
+        return _bound(4 * (2 * entries + rec["radix"]),
+                      entries * OPS_PER_SPINE_ENTRY)
     if rec["names"][0] in RADIX_KERNELS:
         name, n, cfg = rec["names"][0], rec["numel"], rec["config"]
         arrays = 2 if rec["key_value"] else 1
@@ -856,10 +879,20 @@ def _u32_zeros(n: int) -> torch.Tensor:
 
 def plain_ms(rec) -> float:
     """One run of the launch's plain version at the launch's shapes (on
-    zeros for the network; for K8, on K7's output for seeded keys, so its
-    runs are real)."""
-    n = rec["numel"]
-    if rec["names"][0] in RADIX_KERNELS:
+    zeros for the network; for the spine and K8, on K7's output for seeded
+    keys, so its runs are real)."""
+    n = rec.get("numel")
+    if rec["names"][0] == "spine":
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        cfg = SortConfig(backend="radix",
+                         digit_bits=rec["radix"].bit_length() - 1)
+        keys, _ = _radix_inputs(rec["nblocks"] * cfg.block, None, gen,
+                                "cuda")
+        hist = k7.block_sort(keys, shift=0, config=cfg)[-1]
+
+        def plain():
+            k8.spine_plain(hist)
+    elif rec["names"][0] in RADIX_KERNELS:
         cfg, kv = rec["config"], rec["key_value"]
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
         keys, vals = _radix_inputs(n, None, gen, "cuda")
@@ -871,7 +904,7 @@ def plain_ms(rec) -> float:
         else:
             out = k7.block_sort(keys, vals, shift=0, config=cfg,
                                 key_value=kv)
-            g = radix._spine(out[-1])
+            g = k8.digit_offsets(out[-1])
 
             def plain():
                 k8.stream_place_plain(out[0], out[-1], g,
@@ -1005,8 +1038,8 @@ def e2e_times(sorts, keys, vals, card: str, lib: str = "library") -> dict:
 def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
     """Per kernel over TIMED_RUNS runs of the path's sorts: launch time,
     bound and, for one run, the plain version's time at the same shapes.
-    Returns the sums per kernel (per (kernel, carry) with `by_mode`) and
-    every launch's record."""
+    Returns the sums per kernel (per (kernel, carry) with `by_mode`; K7
+    and K8 also per (kernel, "keys" | "kv")) and every launch's record."""
     for fn in sorts.values():  # warm
         fn()
     torch.cuda.synchronize()
@@ -1034,7 +1067,10 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
               and rec["names"][0] in LIBRARY_KERNELS else None)
         carry = rec["mode"].name if "mode" in rec else ""
         for k in rec["names"]:
-            for a in (per.setdefault((k, carry) if by_mode else k, acc()),
+            slots = [(k, carry) if by_mode else k]
+            if "key_value" in rec and not by_mode:
+                slots.append((k, "kv" if rec["key_value"] else "keys"))
+            for a in (*(per.setdefault(x, acc()) for x in slots),
                       by_tag.setdefault((rec["tag"], k, carry), acc())):
                 a["n"] += 1
                 a["ms"] += ms
@@ -2117,6 +2153,46 @@ def profile_phase(n: int = N) -> dict:
     return out
 
 
+RADIX_KERNEL_NAMES = {"block_sort_kernel": "K7", "spine_kernel": "spine",
+                      "place_kernel": "K8"}
+
+
+def radix_profile_phase(n: int = N) -> dict:
+    """One profiling.trace around one radix keys sort at n: the device
+    activity from its first K7 to its last K8 must be K7, the spine and K8
+    once a pass, in that order, and nothing else (no torch op between the
+    kernels). Prints one pass's kernels with their device us."""
+    keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
+    s = vrs.Sorter(n, config=RADIX)
+    s.sort(keys)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d) as prof:
+            s.sort(keys)
+            torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not getattr(e, "is_user_annotation", False)),
+                 key=lambda e: e.time_range.start)
+    labels = [next((k for name, k in RADIX_KERNEL_NAMES.items()
+                    if name in e.name), e.name) for e in dev]
+    ends = [i for i, x in enumerate(labels) if x in ("K7", "K8")]
+    window = labels[ends[0]:ends[-1] + 1] if ends else []
+    want = list(RADIX_KERNEL_NAMES.values()) * RADIX.num_passes
+    one_pass = [{"kernel": x, "us": (e.time_range.end - e.time_range.start)}
+                for x, e in zip(labels[ends[0]:ends[0] + 3],
+                                dev[ends[0]:ends[0] + 3])] if ends else []
+    out = {"n": n, "passes": RADIX.num_passes, "one_pass": one_pass,
+           "device_events_in_window": len(window),
+           "outside_window": [x for i, x in enumerate(labels)
+                              if not ends or not ends[0] <= i <= ends[-1]]}
+    log("[profile] radix", json.dumps(out))
+    if window != want:
+        raise AssertionError(f"a radix sort's device work from its first K7 "
+                             f"to its last K8 is {window}, not {want}")
+    return out
+
+
 def _path_launches(config: SortConfig, kernels, oracles) -> dict:
     """Drive one backend's main path with the counters zeroed just before
     and read just after; every kernel of `kernels` must have launched."""
@@ -2198,6 +2274,7 @@ def main() -> int:
     adaptive_phase(card=card)
     auto_phase(card, sweep_phase(card), sweep64_phase(card))
     profile_phase()
+    radix_profile_phase()
 
     def figures(p):
         return {"ms": p["ms"] / p["n"], "plain_ms": p["plain"] / p["nplain"],
@@ -2219,6 +2296,14 @@ def main() -> int:
                        "max_abs_err": err_carry[key, c],
                        **figures(per64[key, c])}
                       if key in W64_KERNELS else None)
+        if key in ("block_sort", "place"):  # the radix sorts by kind
+            for kind in ("keys", "kv"):
+                row[kind] = figures(per[key, kind])
+        if key == "place":  # K8's column accumulation, a launch of its own
+            row["spine"] = {"source": RADIX_CU, "launches": launches["spine"],
+                            "auto_launches": auto_launches["spine"],
+                            "max_abs_err": err["spine"],
+                            **figures(per["spine"])}
         rows.append(row)
     print(json.dumps({"kernels": rows}))
     print(card)

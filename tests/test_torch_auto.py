@@ -28,7 +28,7 @@ from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 CUDA, CPU = torch.device("cuda"), torch.device("cpu")
 KINDS = ("keys", "kv", "kvns")
 NETWORK = {"chunk", "fused", "cross", "local", "gate"}
-RADIX = {"block_sort", "place"}
+RADIX = {"block_sort", "spine", "place"}
 # the routing tests' kinds -> backends, in the port's and the JAX names
 ROUTE = {"keys": "network", "kv": "radix", "kvns": "reference"}
 JAX_ROUTE = {"keys": "network", "kv": "radix", "kvns": "xla"}

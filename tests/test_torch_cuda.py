@@ -255,9 +255,10 @@ def test_cuda_sorter_matches_numpy(cuda_device, dtype):
 @pytest.mark.parametrize("key_value", [False, True])
 @pytest.mark.parametrize("bits", [4, 8])
 def test_cuda_radix_kernels_match_plain(cuda_device, bits, key_value):
-    """K7 and K8 bitwise equal to their plain versions on the card at every
-    shift of a sort, with few distinct digits and a last block closed by
-    sentinel pads; each launch is counted."""
+    """K7, the spine and K8 bitwise equal to their plain versions on the
+    card at every shift of a sort, with few distinct digits and a last
+    block closed by sentinel pads; each launch is counted, one of each
+    kernel a pass."""
     cfg = SortConfig(backend="radix", digit_bits=bits)
     n = 1 << 18
     keys = _u32(n, bits + 10 * key_value, 1 << 12)
@@ -274,15 +275,143 @@ def test_cuda_radix_kernels_match_plain(cuda_device, bits, key_value):
         for a, b in zip(got, want):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         hist = want[-1]
-        args = (want[0], hist, radix._spine(hist),
-                want[1] if key_value else None)
-        got = k8.stream_place(*args, config=cfg, key_value=key_value)
+        g, offsets = k8.spine(hist)
+        want_g, want_off = k8.spine_plain(hist)
+        torch.cuda.synchronize()
+        assert torch.equal(g, want_g) and torch.equal(offsets, want_off)
+        args = (want[0], hist, want_g, want[1] if key_value else None)
+        got = k8.stream_place(*args, config=cfg, key_value=key_value,
+                              shift=p * bits, offsets=offsets)
         want = k8.stream_place_plain(*args, config=cfg, key_value=key_value)
         torch.cuda.synchronize()
         for a, b in zip(*((got, want) if key_value else ((got,), (want,)))):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert k7.launches["block_sort"] == k8.launches["place"] == \
-        cfg.num_passes
+    assert k7.launches["block_sort"] == k8.launches["spine"] == \
+        k8.launches["place"] == cfg.num_passes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("nblocks", [0, 1, 5, 8, 9, 1000, 2048, 65536])
+def test_cuda_spine_matches_plain(cuda_device, nblocks, bits):
+    """The spine kernel bitwise equal to its plain version on histogram
+    tables of every shape the cluster splits unevenly (fewer rows than
+    blocks of the cluster, rows not a multiple of them), with empty
+    columns."""
+    rng = np.random.default_rng(nblocks + bits)
+    # totals below 2^31, as a sort's counts are
+    hist = rng.integers(0, 64, size=(nblocks, 1 << bits))
+    hist[:, ::7] = 0
+    dh = torch.from_numpy(hist.astype(np.int32)).to(cuda_device)
+    got = k8.spine(dh)
+    want = k8.spine_plain(dh)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block", [512 << i for i in range(6)])
+def test_cuda_spine_and_place_every_block(cuda_device, block, bits):
+    """The spine kernel and K8 (given the pass's shift and the spine's
+    offsets) bitwise equal to their plain versions at every block size,
+    whose K8 tiling changes with the block, at both digit widths: on K7's
+    output for uniform keys, five distinct keys and one digit only, keys
+    and kv, at the lowest and the highest shift, with a last block closed
+    by sentinel pads."""
+    cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
+    rng = np.random.default_rng(block + bits + 1)
+    n = 1 << 18
+    for kind in ("uniform", "few", "one digit"):
+        for shift in (0, 32 - bits):
+            keys = _u32(n, int(rng.integers(1 << 30)))
+            if kind == "few":
+                keys = rng.choice(keys[:5], n)
+            elif kind == "one digit":
+                digit = np.uint32(((1 << bits) - 1) << shift)
+                keys = (keys & ~digit) | np.uint32(5 << shift)
+            keys[-777:] = 0xFFFFFFFF
+            dk = torch.from_numpy(keys).to(cuda_device)
+            dv = torch.from_numpy(_u32(n, shift)).to(cuda_device)
+            for kv in (False, True):
+                out = k7.block_sort(dk, dv if kv else None, shift=shift,
+                                    config=cfg, key_value=kv)
+                hist = out[-1]
+                g, offsets = k8.spine(hist)
+                want_g, want_off = k8.spine_plain(hist)
+                args = (out[0], hist, want_g, out[1] if kv else None)
+                got = k8.stream_place(*args, config=cfg, key_value=kv,
+                                      shift=shift, offsets=offsets)
+                want = k8.stream_place_plain(*args, config=cfg, key_value=kv)
+                torch.cuda.synchronize()
+                assert torch.equal(g, want_g) and torch.equal(offsets,
+                                                              want_off)
+                for a, b in zip(*((got, want) if kv
+                                  else ((got,), (want,)))):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), (kind, shift, kv)
+
+
+@pytest.mark.cuda
+def test_cuda_place_needs_the_shift(cuda_device):
+    """On the card K8 takes each key's digit from the key: without the
+    pass's shift it raises, and launches nothing."""
+    cfg = SortConfig(backend="radix")
+    dk = torch.from_numpy(_u32(1 << 16, 37)).to(cuda_device)
+    y, hist = k7.block_sort(dk, shift=0, config=cfg)
+    g, offsets = k8.spine(hist)
+    k8.reset_launches()
+    with pytest.raises(ValueError, match="shift"):
+        k8.stream_place(y, hist, g, config=cfg, offsets=offsets)
+    assert k8.launches["place"] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("key_value", [False, True])
+def test_cuda_place_without_offsets_runs_the_spine(cuda_device, key_value):
+    """K8 called as the JAX package calls it, without the run offsets: the
+    spine kernel computes them (one launch of each, no torch op) and the
+    result is bitwise the plain version's."""
+    cfg = SortConfig(backend="radix")
+    dk = torch.from_numpy(_u32(1 << 17, 41)).to(cuda_device)
+    dv = torch.from_numpy(_u32(1 << 17, 42)).to(cuda_device)
+    out = k7.block_sort(dk, dv if key_value else None, shift=8, config=cfg,
+                        key_value=key_value)
+    g = k8.digit_offsets(out[-1])
+    args = (out[0], out[-1], g, out[1] if key_value else None)
+    k8.reset_launches()
+    got = k8.stream_place(*args, config=cfg, key_value=key_value, shift=8)
+    torch.cuda.synchronize()
+    assert k8.launches == {"spine": 1, "place": 1}
+    want = k8.stream_place_plain(*args, config=cfg, key_value=key_value)
+    for a, b in zip(*((got, want) if key_value else ((got,), (want,)))):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_radix_pass_is_three_launches(cuda_device):
+    """A radix keys sort's device work, from its first K7 to its last K8,
+    is K7, the spine and K8 once a pass and nothing else: no torch op
+    between them."""
+    s = vrs.Sorter(1 << 20, config=SortConfig(backend="radix"))
+    k = torch.from_numpy(_u32(1 << 20, 38)).to(cuda_device)
+    s.sort(k)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        s.sort(k)
+        torch.cuda.synchronize()
+    names = [e.name for e in sorted(prof.events(),
+                                    key=lambda e: e.time_range.start)
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels = ("block_sort_kernel", "spine_kernel", "place_kernel")
+    first = next(i for i, x in enumerate(names) if kernels[0] in x)
+    last = max(i for i, x in enumerate(names) if kernels[2] in x)
+    got = [next((k for k in kernels if k in x), x)
+           for x in names[first:last + 1]]
+    assert got == list(kernels) * s.config.num_passes
 
 
 @pytest.mark.cuda
@@ -664,7 +793,8 @@ def test_cuda_launch_timer_records_events(cuda_device):
 
 
 AUTO_KERNELS = {"network": {"chunk", "fused", "cross", "local", "gate"},
-                "radix": {"block_sort", "place"}, "reference": set()}
+                "radix": {"block_sort", "spine", "place"},
+                "reference": set()}
 
 
 @pytest.mark.cuda

@@ -1,5 +1,5 @@
-"""The port's radix kernels, K7 (block sort) and K8 (placement), against the
-JAX package's Pallas kernels and against numpy.
+"""The port's radix kernels, K7 (block sort), the spine and K8 (placement),
+against the JAX package's Pallas kernels and against numpy.
 
 On the CPU each wrapper of `vulkan_radix_sort_tpu_torch.ops.block_sort` /
 `stream_place` runs its kernel's plain PyTorch version; the JAX side runs
@@ -26,7 +26,6 @@ from vulkan_radix_sort_tpu.ops.stream_place import (
 from vulkan_radix_sort_tpu_torch.config import (
     MAX_RADIX_BLOCK, RADIX_THREADS, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
-from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 
 JCFG = JaxConfig(block=1024, flush_rows=4, interpret=True)
@@ -134,13 +133,73 @@ def test_stream_place_matches_jax(dist_hi, key_value):
         np.testing.assert_array_equal(got[1].numpy(), vals[order])
 
 
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("nblocks", [1, 3, 37])
+def test_spine_plain_matches_jax_and_numpy(nblocks, bits):
+    """`spine` on the CPU (its plain version) bitwise equal to the JAX
+    `_spine` and to a numpy column scan, with empty columns (a digit no
+    block holds, and the first and last digits) and one-block tables."""
+    radix = 1 << bits
+    rng = np.random.default_rng(nblocks * 10 + bits)
+    hist = rng.integers(0, 300, size=(nblocks, radix)).astype(np.int32)
+    hist[:, [0, radix // 3, radix - 1]] = 0
+    g, off = k8.spine(torch.from_numpy(hist))
+    assert g.dtype == off.dtype == torch.int32 and off.is_contiguous()
+    tot = hist.sum(0)
+    want_g = np.cumsum(tot) - tot
+    np.testing.assert_array_equal(g.numpy(), want_g)
+    np.testing.assert_array_equal(off.numpy(),
+                                  np.cumsum(hist, 0) - hist + want_g)
+    # the JAX spine on its lane-padded rows (128 lanes; 256 columns as
+    # they are)
+    padded = np.zeros((nblocks, max(radix, 128)), np.int32)
+    padded[:, :radix] = hist
+    np.testing.assert_array_equal(
+        np.asarray(jax_spine(jnp.asarray(padded), radix))[0, :radix],
+        g.numpy())
+
+
+@pytest.mark.parametrize("key_value", [False, True])
+@pytest.mark.parametrize("dist_hi", [2**32, 3])
+@pytest.mark.parametrize("shift", [4, 28])
+def test_stream_place_with_spine_matches_jax(shift, dist_hi, key_value):
+    """K8 as a radix pass calls it (the pass's shift, the run offsets from
+    `spine`) bitwise equal to the Pallas placement after the Pallas block
+    sort at that shift, uniform and skewed digits (three values)."""
+    keys = _keys(shift + key_value, hi=dist_hi) << np.uint32(shift)
+    keys |= _keys(shift + 50, hi=1 << shift)  # lower digits: noise
+    vals = _vals(shift + 3)
+    y, yv, hist = jax_block_sort(_tile(keys, 0xFFFFFFFF), _tile(vals, 0),
+                                 shift=shift, config=JCFG, key_value=True,
+                                 interpret=True)
+    g = jax_spine(hist, R)
+    if key_value:
+        want = jax_stream_place(y, hist, g, yv, config=JCFG, key_value=True,
+                                interpret=True)
+    else:
+        want = (jax_stream_place(y, hist, g, config=JCFG, interpret=True),)
+    th = torch.tensor(np.asarray(hist)[:, :R])
+    tg, offsets = k8.spine(th)
+    np.testing.assert_array_equal(tg.numpy(), np.asarray(g)[0, :R])
+    got = k8.stream_place(torch.from_numpy(_flat(y)), th, tg,
+                          torch.from_numpy(_flat(yv)) if key_value else None,
+                          config=CFG, key_value=key_value, shift=shift,
+                          offsets=offsets)
+    got = got if key_value else (got,)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), _flat(b))
+    order = np.argsort((keys >> np.uint32(shift)) & np.uint32(15),
+                       kind="stable")
+    np.testing.assert_array_equal(got[0].numpy(), keys[order])
+
+
 def test_spine_and_block_offsets_match_numpy():
     rng = np.random.default_rng(3)
     hist = rng.integers(0, 100, size=(37, 256)).astype(np.int32)
     hist[:, 5] = 0  # an empty digit
     tot = hist.sum(0)
     g = np.cumsum(tot) - tot
-    got_g = radix._spine(torch.from_numpy(hist))
+    got_g = k8.digit_offsets(torch.from_numpy(hist))
     assert got_g.dtype == torch.int32
     np.testing.assert_array_equal(got_g.numpy(), g)
     off = k8.block_offsets(torch.from_numpy(hist), got_g)
@@ -152,7 +211,7 @@ def test_spine_and_block_offsets_match_numpy():
     padded[:, :16] = hist[:, :16]
     np.testing.assert_array_equal(
         np.asarray(jax_spine(jnp.asarray(padded), 16))[0, :16],
-        radix._spine(torch.from_numpy(hist[:, :16].copy())).numpy())
+        k8.digit_offsets(torch.from_numpy(hist[:, :16].copy())).numpy())
 
 
 @pytest.mark.parametrize("key_value", [False, True])
@@ -179,7 +238,7 @@ def test_plain_kernels_8bit_match_numpy(shift, key_value):
             np.testing.assert_array_equal(out[1][s].numpy(), vals[s][order])
         np.testing.assert_array_equal(out[-1][b].numpy(),
                                       np.bincount(digit[s], minlength=256))
-    placed = k8.stream_place(out[0], out[-1], radix._spine(out[-1]),
+    placed = k8.stream_place(out[0], out[-1], k8.digit_offsets(out[-1]),
                              out[1] if key_value else None, config=cfg,
                              key_value=key_value)
     placed = placed if key_value else (placed,)
@@ -210,10 +269,14 @@ def test_cpu_wrappers_run_plain_and_count_no_launch():
     y, hist = k7.block_sort(keys, shift=4, config=CFG)
     want = k7.block_sort_plain(keys, shift=4, config=CFG)
     assert torch.equal(y, want[0]) and torch.equal(hist, want[1])
-    g = radix._spine(hist)
-    assert torch.equal(k8.stream_place(y, hist, g, config=CFG),
-                       k8.stream_place_plain(y, hist, g, config=CFG))
-    assert k7.launches == {"block_sort": 0} and k8.launches == {"place": 0}
+    g, offsets = k8.spine(hist)
+    want_g, want_off = k8.spine_plain(hist)
+    assert torch.equal(g, want_g) and torch.equal(offsets, want_off)
+    assert torch.equal(
+        k8.stream_place(y, hist, g, config=CFG, shift=4, offsets=offsets),
+        k8.stream_place_plain(y, hist, g, config=CFG))
+    assert k7.launches == {"block_sort": 0}
+    assert k8.launches == {"spine": 0, "place": 0}
 
 
 def test_wrappers_reject_bad_inputs():
@@ -229,11 +292,26 @@ def test_wrappers_reject_bad_inputs():
     with pytest.raises(ValueError):
         k7.block_sort(keys, keys[:B], shift=0, config=CFG, key_value=True)
     y, hist = k7.block_sort(keys, shift=0, config=CFG)
-    g = radix._spine(hist)
+    g = k8.digit_offsets(hist)
     with pytest.raises(ValueError):  # histogram of another geometry
         k8.stream_place(y, hist[:, :8].contiguous(), g, config=CFG)
     with pytest.raises(ValueError):
         k8.stream_place(y, hist, g.to(torch.int64), config=CFG)
+    with pytest.raises(ValueError):  # run offsets of another geometry
+        k8.stream_place(y, hist, g, config=CFG, offsets=hist[:4].clone())
+    for bad in (hist.to(torch.int64), hist[:, :8].contiguous(), hist.t(),
+                hist[0]):
+        with pytest.raises(ValueError):
+            k8.spine(bad)
     meta = torch.empty(N, dtype=torch.uint32, device="meta")
     with pytest.raises(ValueError):  # no kernel and no plain off the CPU/GPU
         k7.block_sort(meta, shift=0, config=CFG)
+    mh = torch.empty(N // B, R, dtype=torch.int32, device="meta")
+    mg = torch.empty(R, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        k8.spine(mh)
+    for shift in (None, 32):  # off the CPU the kernel needs the shift
+        with pytest.raises(ValueError, match="shift"):
+            k8.stream_place(meta, mh, mg, config=CFG, shift=shift)
+    with pytest.raises(ValueError, match="no kernel"):
+        k8.stream_place(meta, mh, mg, config=CFG, shift=0)

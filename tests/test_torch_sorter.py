@@ -319,7 +319,10 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
                            device="cpu")
     err["local_gated"] = cs.check_slot_merges(slot=1 << 12, device="cpu")
     cs.check_halves_merge(m=1 << 13, device="cpu")
-    assert set(err) == set(cs.KERNELS) and not any(err.values())
+    # every kernel row's kernel, and the spine (K8's column sums, a
+    # launch of its own)
+    assert set(err) == set(cs.KERNELS) | set(cs.RADIX_KERNELS)
+    assert not any(err.values())
     oracles = {}
     kw = dict(n=1 << 16, n_ragged=(1 << 15) + 4096, device="cpu",
               oracles=oracles)

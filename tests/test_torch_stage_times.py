@@ -152,8 +152,9 @@ def test_rounds_and_mode_match_jax(case):
 
 
 def test_radix_launches_recorded():
-    """K7 and K8 record one launch per pass each; nested timers both
-    record, and no launch is recorded once they have exited."""
+    """K7, the spine and K8 record one launch per pass each, in that
+    order; nested timers both record, and no launch is recorded once they
+    have exited."""
     cfg = SortConfig(backend="radix")
     k = _u32(1 << 14, 7)
     with timing.LaunchTimer() as outer:
@@ -163,8 +164,15 @@ def test_radix_launches_recorded():
     radix.sort_u32(k, config=cfg)
     for t in (outer, inner):
         assert Counter(r["names"][0] for r in t.records) == {
-            "block_sort": cfg.num_passes, "place": cfg.num_passes}
-    assert [r["shift"] for r in inner.records[::2]] == [0, 8, 16, 24]
+            "block_sort": cfg.num_passes, "spine": cfg.num_passes,
+            "place": cfg.num_passes}
+    assert [r["names"][0] for r in inner.records] == \
+        ["block_sort", "spine", "place"] * cfg.num_passes
+    for name in ("block_sort", "place"):
+        assert [r["shift"] for r in inner.records
+                if r["names"][0] == name] == [0, 8, 16, 24]
+    assert [r["nblocks"] for r in inner.records
+            if r["names"][0] == "spine"] == [1] * cfg.num_passes
     assert {r["tag"] for r in inner.records} == {"radix"}
     assert {r["tag"] for r in outer.records} == {""}
     assert not timing._ACTIVE

@@ -47,8 +47,11 @@ SIGNATURES = {
     # (kv, keys, vals, out_k, out_v, hist, nblocks, block, shift, bits,
     #  stream)
     "vrs_block_sort": (_I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
-    # (kv, y, yv, hist, offsets, out, outv, nblocks, block, bits, stream)
-    "vrs_place": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _P),
+    # (kv, y, yv, hist, offsets, out, outv, nblocks, block, shift, bits,
+    #  stream)
+    "vrs_place": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # (hist, g_row, offsets, nblocks, bits, stream)
+    "vrs_spine": (_P, _P, _P, _LL, _I, _P),
 }
 
 

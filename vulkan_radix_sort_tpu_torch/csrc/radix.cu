@@ -1,29 +1,34 @@
-// LSD radix sort kernels for Hopper (sm_90a): one pass's block sort and
-// placement.
+// LSD radix sort kernels for Hopper (sm_90a): one pass's block sort, spine
+// and placement.
 //
 // CUDA counterparts of the two Pallas kernels of the JAX package's radix
 // pipeline (vulkan_radix_sort_tpu/ops/radix.py):
 //
 //   block_sort_kernel  K7  block_sort / _block_sort_body
 //                          (ops/block_sort.py:154, 65)
+//   spine_kernel       K8  the column accumulation over blocks that
+//                          _stream_place_body does as it walks the blocks,
+//                          plus radix.py's _spine (ops/radix.py:34)
 //   place_kernel       K8  stream_place / _stream_place_body
 //                          (ops/stream_place.py:228, 54)
 //
-// A pass is K7 -> spine -> K8, as the reference's upsweep -> spine ->
-// downsweep (src/shader/{upsweep,spine,downsweep}.slang). K7 sorts each
-// `block`-key block stably by the digit (key >> shift) & (radix - 1) and
-// writes the block's radix-bin histogram. The spine (torch: ops/radix.py
-// `_spine` and ops/stream_place.py `block_offsets`) turns the histograms
-// into each (block, digit) run's global output offset: a column-wise
-// exclusive scan over blocks plus the global exclusive scan over digits,
-// the reference spine's two halves. K8 then
-// copies element i of run (p, b) to offset[p][b] + (i - start of the run).
+// A pass is three launches with nothing between them, K7 -> spine -> K8,
+// as the reference's upsweep -> spine -> downsweep
+// (src/shader/{upsweep,spine,downsweep}.slang). K7 sorts each `block`-key
+// block stably by the digit (key >> shift) & (radix - 1) and writes the
+// block's radix-bin histogram. The spine turns the (nblocks, radix)
+// histograms into the global exclusive digit offsets g and each
+// (block, digit) run's output offset, offsets[p][d] = g[d] + the sum of
+// hist[q][d] over q < p: the reference spine's two halves. K8 then copies
+// element i of block p, of digit d, to offsets[p][d] + i - (start of d's
+// run in the block).
 //
 // What changed from the TPU: there, ranks came from one-hot matmuls on the
 // MXU (no atomics, no ballots), and placement walked the blocks in order on
-// one core with per-bucket append streams. Hopper blocks run in parallel
-// and in no order, so each block gets its own base per digit from the
-// spine, and ranks come from warp match masks.
+// one core with per-bucket append streams, accumulating each digit's
+// position as it went. Hopper blocks run in parallel and in no order, so
+// the spine gives each block its own base per digit, and ranks come from
+// warp match masks.
 //
 // Stability is the whole LSD contract, so no rank comes from an atomic
 // counter, whose order changes from run to run. K7 ranks as CUB's
@@ -38,30 +43,51 @@
 // the table in digit-major order then gives each (digit, warp) run its
 // start in the sorted block, and the block's histogram.
 //
-// What bounds them on an H100: both move every key (and value) once in and
-// once out of HBM and do a few integer operations per key, so both are
-// bound by bytes. K7 copies its block into shared memory with 16-byte
+// What bounds them on an H100: K7 and K8 move every key (and value) once
+// in and once out of HBM and do a few integer operations per key, so both
+// are bound by bytes. K7 copies its block into shared memory with 16-byte
 // asynchronous copies (cp.async), keeps keys, values and ranks in
 // registers, scatters keys and values into shared memory in one pass and
 // writes the sorted block back with 16-byte stores: five barriers a block,
-// and shared memory for the block and the count table only. K8 reads
-// coalesced; its writes are contiguous within each (block, digit) run (64
-// keys on average at 8 bits and 16384-key blocks), which a later design
-// could stage through shared memory into longer runs. No TMA, no clusters,
-// no decoupled look-back yet.
+// and shared memory for the block and the count table only. K8 takes each
+// key's digit from the key itself and writes it to delta[digit] + its
+// index: one shared lookup a key and no search for its run (CUB's
+// onesweep downsweep does the same). Its loads are issued before the
+// block builds its delta table, and a warp's stores cover 32 consecutive
+// keys, contiguous within each (block, digit) run (64 keys on average at
+// 8 bits and 16384-key blocks). What holds it back is the scatter: it
+// reaches about two thirds of the byte bound on an H100. Small tiles (512
+// keys, 65536 blocks at 2^25) were faster than larger ones, than tiles
+// staged through shared memory by 16-byte copies, and, for keys, than
+// staging the output so that each warp store fills one 128-byte line
+// (PERF.md, section 6). The spine's table is 2 MB at 2^25 keys and sits in L2
+// after K7, so its bound is about a microsecond. It runs as one cluster
+// of 8 blocks that share their column sums through distributed shared
+// memory, so that no torch op and no second launch is needed; with 8
+// rows a thread in flight on 8 SMs it takes about 18 us at 2048 rows,
+// and its time grows with the rows (0.3 ms at 65536). No TMA and no
+// decoupled look-back yet.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 512;  // most threads of a K7 block: RADIX_THREADS
 constexpr int kVecKeys = 4;    // keys in one 16-byte vector
-constexpr int kPlaceThreads = 256;
+constexpr int kPlaceThreads = 256;  // K8 scans radix <= 256 digits
+constexpr int kPlaceTile = 512;     // keys of a K8 block: 2 a thread
+constexpr int kSpineCluster = 8;  // blocks of the spine's one cluster
+constexpr int kSpineThreads = 1024;
+constexpr int kSpineUnroll = 8;   // rows a spine thread has in flight
 constexpr int kMaxRadix = 256;  // scans below need blockDim >= radix
 constexpr int kSmemBytes = 232448;
 constexpr int kMinBlock = 512;    // RADIX_THREADS in config.py
 constexpr int kMaxBlock = 16384;  // MAX_RADIX_BLOCK in config.py
+static_assert(kMinBlock % kPlaceTile == 0, "a K8 tile lies in one block");
 
 // In-place exclusive scan of a[0, n), n <= blockDim.x and n <= 1024, by the
 // whole block. `wsum` holds 32 ints of scratch.
@@ -280,38 +306,143 @@ __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
   }
 }
 
-// K8: one block per `block` keys of block-sorted input. Run b of block p
-// holds elements [s_b, s_b + hist[p][b]) of the block, s the exclusive scan
-// of the histogram row; element i of it goes to offsets[p][b] + i - s_b.
+// The spine: one cluster of CL blocks over the (nblocks, radix) histogram.
+// Block k takes a contiguous slice of rows; thread (j, c) of it (c = t %
+// radix, j = t / radix) a contiguous part of that slice in column c, so a
+// warp reads whole rows (128 bytes at radix 256). Phase 1 sums
+// each thread's part; a scan over j gives each part's start within the
+// slice and the slice's column sums, which the blocks of the cluster read
+// from each other's shared memory: each column's total, and its sum over
+// the slices before this one. The totals' exclusive scan is g (g_row,
+// written by block 0); phase 2 reads the rows again and writes each row's
+// running column sums plus g.
+template <int CL>
+__global__ void __launch_bounds__(kSpineThreads)
+    spine_kernel(const int* __restrict__ hist, int* __restrict__ g_row,
+                 int* __restrict__ offsets, long long nblocks, int bits) {
+  __shared__ int part[kSpineThreads];  // [j][c]: part sums, then starts
+  __shared__ int colsum[kMaxRadix];    // this slice's column sums
+  __shared__ int base[kMaxRadix];
+  __shared__ int wsum[32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = int(cluster.block_rank());
+  const int radix = 1 << bits, t = threadIdx.x;
+  const int c = t & (radix - 1), j = t >> bits;
+  const int parts = kSpineThreads >> bits;
+  const long long slice = (nblocks + CL - 1) / CL;
+  const long long r0 = min(rank * slice, nblocks);
+  const long long r1 = min(r0 + slice, nblocks);
+  const long long each = (r1 - r0 + parts - 1) / parts;
+  const long long a = min(r0 + j * each, r1), b = min(a + each, r1);
+  const int* col = hist + c;
+
+  int sum = 0;
+  long long r = a;
+  for (; r + kSpineUnroll <= b; r += kSpineUnroll) {
+    int v[kSpineUnroll];
+#pragma unroll
+    for (int u = 0; u < kSpineUnroll; ++u) v[u] = col[(r + u) * radix];
+#pragma unroll
+    for (int u = 0; u < kSpineUnroll; ++u) sum += v[u];
+  }
+  for (; r < b; ++r) sum += col[r * radix];
+  part[t] = sum;
+  __syncthreads();
+  if (t < radix) {
+    int run = 0;
+    for (int q = 0; q < parts; ++q) {
+      const int x = part[q * radix + t];
+      part[q * radix + t] = run;
+      run += x;
+    }
+    colsum[t] = run;
+  }
+  cluster.sync();
+  int before = 0;
+  if (t < radix) {
+    int total = 0;
+    for (int k = 0; k < CL; ++k) {
+      const int x = cluster.map_shared_rank(colsum, k)[t];
+      total += x;
+      if (k < rank) before += x;
+    }
+    base[t] = total;
+  }
+  cluster.sync();  // no block leaves while another reads its colsum
+  block_exclusive_scan(base, radix, wsum);
+  if (t < radix) {
+    if (rank == 0) g_row[t] = base[t];
+    base[t] += before;
+  }
+  __syncthreads();
+
+  int run = base[c] + part[t];
+  int* out = offsets + c;
+  r = a;
+  for (; r + kSpineUnroll <= b; r += kSpineUnroll) {
+    int v[kSpineUnroll];
+#pragma unroll
+    for (int u = 0; u < kSpineUnroll; ++u) v[u] = col[(r + u) * radix];
+#pragma unroll
+    for (int u = 0; u < kSpineUnroll; ++u) {
+      out[(r + u) * radix] = run;
+      run += v[u];
+    }
+  }
+  for (; r < b; ++r) {
+    const int v = col[r * radix];
+    out[r * radix] = run;
+    run += v;
+  }
+}
+
+// K8: one block per kPlaceTile keys of block-sorted input; block p's
+// tiles are blocks p * tiles .. p * tiles + tiles - 1. Thread t loads keys
+// t and t + kPlaceThreads of the tile (and their values), coalesced, before
+// the block builds delta[d] = offsets[p][d] - s_d + (the tile's first
+// index in block p), s the exclusive scan of hist[p]. Then key i of the
+// tile, of digit d, goes to delta[d] + i: the same place as the run
+// formula, since the block is sorted by d and hist[p] is its histogram.
+// A warp's stores are 32 consecutive keys of the block.
 template <bool KV>
 __global__ void __launch_bounds__(kPlaceThreads)
     place_kernel(const uint32_t* __restrict__ y,
                  const uint32_t* __restrict__ yv,
                  const int* __restrict__ hist,
                  const int* __restrict__ offsets, uint32_t* __restrict__ out,
-                 uint32_t* __restrict__ outv, int block, int bits) {
-  __shared__ int start[kMaxRadix];
-  __shared__ int off[kMaxRadix];
+                 uint32_t* __restrict__ outv, int block, int shift,
+                 int bits) {
+  constexpr int KPT = kPlaceTile / kPlaceThreads;
+  __shared__ int delta[kMaxRadix];
   __shared__ int wsum[32];
-  const int radix = 1 << bits;
-  const uint64_t p = blockIdx.x;
-  const uint64_t base = p * uint64_t(block);
-  const int t = threadIdx.x;
-  if (t < radix) {
-    start[t] = hist[p * radix + t];
-    off[t] = offsets[p * radix + t];
+  const int radix = 1 << bits, t = threadIdx.x;
+  const int tiles = block / kPlaceTile;
+  const uint64_t p = blockIdx.x / tiles;
+  const int i0 = int(blockIdx.x % tiles) * kPlaceTile;
+  const uint64_t base = p * uint64_t(block) + i0;
+
+  uint32_t k[KPT], v[KV ? KPT : 1];
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    k[j] = y[base + j * kPlaceThreads + t];
+    if constexpr (KV) v[j] = yv[base + j * kPlaceThreads + t];
   }
+  int off = 0;
+  if (t < radix) {
+    delta[t] = hist[p * radix + t];
+    off = offsets[p * radix + t];
+  }
+  block_exclusive_scan(delta, radix, wsum);
+  if (t < radix) delta[t] = off - delta[t] + i0;
   __syncthreads();
-  block_exclusive_scan(start, radix, wsum);
-  for (int i = t; i < block; i += kPlaceThreads) {
-    // the last run starting at or before i; it is not empty, since the
-    // next run starts past i
-    int b = 0;
-    for (int s = radix >> 1; s > 0; s >>= 1)
-      if (start[b + s] <= i) b += s;
-    const int64_t dst = int64_t(off[b]) + (i - start[b]);
-    out[dst] = y[base + i];
-    if constexpr (KV) outv[dst] = yv[base + i];
+
+  const uint32_t mask = uint32_t(radix - 1);
+#pragma unroll
+  for (int j = 0; j < KPT; ++j) {
+    const int i = j * kPlaceThreads + t;
+    const int dst = delta[(k[j] >> shift) & mask] + i;
+    out[dst] = k[j];
+    if constexpr (KV) outv[dst] = v[j];
   }
 }
 
@@ -370,12 +501,15 @@ int launch_block_sort(const SortArgs& a) {
 template <bool KV>
 int launch_place(const void* y, const void* yv, const void* hist,
                  const void* offsets, void* out, void* outv,
-                 long long nblocks, int block, int bits, cudaStream_t st) {
+                 long long nblocks, int block, int shift, int bits,
+                 cudaStream_t st) {
   if (nblocks == 0) return int(cudaSuccess);
-  place_kernel<KV><<<unsigned(nblocks), kPlaceThreads, 0, st>>>(
+  const long long grid = nblocks * (block / kPlaceTile);
+  place_kernel<KV><<<unsigned(grid), kPlaceThreads, 0, st>>>(
       static_cast<const uint32_t*>(y), static_cast<const uint32_t*>(yv),
       static_cast<const int*>(hist), static_cast<const int*>(offsets),
-      static_cast<uint32_t*>(out), static_cast<uint32_t*>(outv), block, bits);
+      static_cast<uint32_t*>(out), static_cast<uint32_t*>(outv), block,
+      shift, bits);
   return int(cudaGetLastError());
 }
 
@@ -409,13 +543,40 @@ int vrs_block_sort(int kv, const void* keys, const void* vals, void* out_k,
 
 int vrs_place(int kv, const void* y, const void* yv, const void* hist,
               const void* offsets, void* out, void* outv, long long nblocks,
-              int block, int bits, void* stream) {
-  if (bad_geometry(nblocks, block, bits)) return int(cudaErrorInvalidValue);
+              int block, int shift, int bits, void* stream) {
+  if (bad_geometry(nblocks, block, bits) || shift < 0 || shift > 31 ||
+      nblocks * (block / kPlaceTile) > 0x7fffffffLL)
+    return int(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
   return kv ? launch_place<true>(y, yv, hist, offsets, out, outv, nblocks,
-                                 block, bits, st)
+                                 block, shift, bits, st)
             : launch_place<false>(y, yv, hist, offsets, out, outv, nblocks,
-                                  block, bits, st);
+                                  block, shift, bits, st);
+}
+
+// One launch: g_row (radix,) and offsets (nblocks, radix) from hist
+// (nblocks, radix), all int32.
+int vrs_spine(const void* hist, void* g_row, void* offsets,
+              long long nblocks, int bits, void* stream) {
+  if (nblocks < 0 || (bits != 4 && bits != 8))
+    return int(cudaErrorInvalidValue);
+  // the cluster's shape is a launch attribute: its blocks are resident
+  // together and read each other's shared memory
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kSpineCluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(kSpineCluster);
+  cfg.blockDim = dim3(kSpineThreads);
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return int(cudaLaunchKernelEx(&cfg, spine_kernel<kSpineCluster>,
+                                static_cast<const int*>(hist),
+                                static_cast<int*>(g_row),
+                                static_cast<int*>(offsets), nblocks, bits));
 }
 
 }  // extern "C"

@@ -1,11 +1,12 @@
-"""LSD radix sort: the host code over the block sort (K7) and the placement
-(K8).
+"""LSD radix sort: the host code over the block sort (K7), the spine and
+the placement (K8).
 
 Counterpart of `vulkan_radix_sort_tpu/ops/radix.py`, and of the
 reference's gpuSort (h.in:344-507): `num_passes` passes over `digit_bits`
-digits, least significant first, each
+digits, least significant first, each three launches with no torch op
+between them:
 
-    block_sort (K7) -> _spine (torch) -> stream_place (K8)
+    block_sort (K7) -> spine -> stream_place (K8)
 
 as the reference's upsweep -> spine -> downsweep. PyTorch runs the three on
 one stream, in order, so no barrier is written out. K8 writes each pass
@@ -37,15 +38,6 @@ from .bitops import check_u32, pad_u32
 MIN_RADIX_N = 1 << 14
 
 
-def _spine(hist: torch.Tensor) -> torch.Tensor:
-    """Global exclusive digit offsets (radix,) int32 from the (nblocks,
-    radix) histograms: the second half of the reference spine
-    (spine.slang:62-83). Its first half, the column scan over blocks, is
-    `stream_place.block_offsets`."""
-    tot = hist.sum(0, dtype=torch.int32)
-    return torch.cumsum(tot, 0, dtype=torch.int32) - tot
-
-
 def sort_u32(keys: torch.Tensor, *, config: SortConfig | None = None):
     """Ascending sort of uint32 keys through the radix kernels. Returns a
     new tensor; `keys` is not modified."""
@@ -56,10 +48,12 @@ def sort_u32(keys: torch.Tensor, *, config: SortConfig | None = None):
         return reference.sort_keys(keys)
     x = pad_u32(keys, round_up(n, config.block), KEY_SENTINEL)
     for p in range(config.num_passes):
-        y, hist = k7.block_sort(x, shift=p * config.digit_bits,
-                                config=config)
+        shift = p * config.digit_bits
+        y, hist = k7.block_sort(x, shift=shift, config=config)
         del x  # its memory takes K8's output: the ping-pong
-        x = k8.stream_place(y, hist, _spine(hist), config=config)
+        g, offsets = k8.spine(hist)
+        x = k8.stream_place(y, hist, g, config=config, shift=shift,
+                            offsets=offsets)
     return x[:n]
 
 
@@ -75,29 +69,32 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, *,
     size = round_up(n, config.block)
     x, v = pad_u32(keys, size, KEY_SENTINEL), pad_u32(values, size, 0)
     for p in range(config.num_passes):
-        y, yv, hist = k7.block_sort(x, v, shift=p * config.digit_bits,
-                                    config=config, key_value=True)
+        shift = p * config.digit_bits
+        y, yv, hist = k7.block_sort(x, v, shift=shift, config=config,
+                                    key_value=True)
         del x, v
-        x, v = k8.stream_place(y, hist, _spine(hist), yv, config=config,
-                               key_value=True)
+        g, offsets = k8.spine(hist)
+        x, v = k8.stream_place(y, hist, g, yv, config=config,
+                               key_value=True, shift=shift, offsets=offsets)
     return x[:n], v[:n]
 
 
 def stage_times(keys: torch.Tensor, config: SortConfig,
                 iters: int = 10) -> dict:
     """Seconds per stage of one keys pass, and of all passes: the block
-    sort (upsweep), the spine, and the placement with its per-block
-    offsets (downsweep). The analog of the reference's timestamps
-    (h.in:39-50). On the card only: `time_fn` raises without one."""
+    sort (upsweep), the spine kernel, and the placement kernel alone
+    (downsweep). The analog of the reference's timestamps (h.in:39-50). On
+    the card only: `time_fn` raises without one."""
     check_u32(keys)
     size = round_up(max(keys.numel(), config.block), config.block)
     x = pad_u32(keys, size, KEY_SENTINEL)
     y, hist = k7.block_sort(x, shift=0, config=config)
-    g = _spine(hist)
+    g, offsets = k8.spine(hist)
     t_up = time_fn(lambda: k7.block_sort(x, shift=0, config=config),
                    iters=iters)
-    t_sp = time_fn(lambda: _spine(hist), iters=iters)
-    t_down = time_fn(lambda: k8.stream_place(y, hist, g, config=config),
+    t_sp = time_fn(lambda: k8.spine(hist), iters=iters)
+    t_down = time_fn(lambda: k8.stream_place(y, hist, g, config=config,
+                                             shift=0, offsets=offsets),
                      iters=iters)
     npass = config.num_passes
     return {

@@ -8,11 +8,11 @@ directly. A time is only ever taken on a card: with none present
 
 `LaunchTimer` records every kernel launch made while it is active. The
 kernels' wrappers (`bitonic_kernels.run`, `block_sort.block_sort`,
-`stream_place.stream_place`) call `launch` around each launch, or for CPU
-buffers around the plain version that stands in for it; `launch`
-records it in every active LaunchTimer: its counter names, the arguments
-that size its work, and on a CUDA device a pair of CUDA events on the
-device's current stream around it. On the CPU a record has no events, so
+`stream_place.spine`, `stream_place.stream_place`) call `launch` around
+each launch, or for CPU buffers around the plain version that stands in
+for it; `launch` records it in every active LaunchTimer: its counter
+names, the arguments that size its work, and on a CUDA device a pair of
+CUDA events on the device's current stream around it. On the CPU a record has no events, so
 the launch plan can be checked without a card.
 """
 
@@ -78,7 +78,8 @@ class LaunchTimer:
     launches by sort), `events` (a (start, end) pair of CUDA events, or
     None on the CPU) and the keywords the wrapper passed (`launch`,
     `mode`, `numel`, `nunits`, `valid` for the network kernels; `numel`,
-    `shift`, `config`, `key_value` for K7 and K8), held by reference.
+    `shift`, `config`, `key_value` for K7 and K8; `nblocks`, `radix` for
+    the spine), held by reference.
     """
 
     def __init__(self):
