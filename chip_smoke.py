@@ -14,8 +14,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      local, and the validity gate) in the keys, pairs and stable carries
      and the 64-bit key carries w3 and w4_big, at 2^20 elements (with extra
      geometries: clipped grids, a round split into several cross spans,
-     the chunk and local kernels at every chunk from 256 to the carry's
-     register cap, the fused kernel at every group from 512 to the cap)
+     the cross kernel at every span up to the carry's cap (10 for keys,
+     7 for w4_big, else 8), the chunk and local kernels at every chunk
+     from 256 to the carry's register cap, the fused kernel at every
+     group from 512 to the cap)
      and at the main path's 2^25 shapes. The radix backend's
      (block sort K7, the spine, placement K8 with the pass's shift and
      the spine kernel's offsets) at 2^20 at every block from 512 to
@@ -182,7 +184,10 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
               REGS + " (K1's last phases on a group)"),
     "cross": ("K3 cross", BITONIC_CU,
               "vulkan_radix_sort_tpu/ops/bitonic.py:948",
-              "first design: shared-memory tile, a barrier per stage"),
+              "redesigned for keys, pairs, stable: register columns "
+              "(8-byte vectors, 32 or 16 span positions a thread), one "
+              "transpose (one barrier) for deeper spans; w3, w4_big: "
+              "first design, shared-memory tile, a barrier per stage"),
     "local": ("K4 local", BITONIC_CU,
               "vulkan_radix_sort_tpu/ops/bitonic.py:993", REGS),
     "gate": ("K5 validity gate", BITONIC_CU,
@@ -244,12 +249,14 @@ def launch_counts() -> dict[str, int]:
 # every one, so that the spill check covers them all. chunk and local: C
 # from 2^8 to the register cap, 8 for keys, 7 for each two-word carry and
 # 6 for each three-word one; fused: G from 2^9 to the cap, 7 + 6 + 6 +
-# 5 + 5; cross: one per carry; block sort: keys or kv, 4 to 32 keys a
-# thread, 4- or 8-bit digits; placement: keys or kv; spine: one cluster
-# size.
-INSTANTIATIONS = {"chunk_kernel": 34, "local_kernel": 34, "cross_kernel": 5,
-                  "fused_kernel": 29, "block_sort_kernel": 16,
-                  "place_kernel": 2, "spine_kernel": 1}
+# 5 + 5; cross: the register-column kernel at every span from 1 to the
+# cap, 10 for keys and 8 for pairs and stable, the shared-memory one in
+# w3 and w4_big; block sort: keys or kv, 4 to 32 keys a thread, 4- or
+# 8-bit digits; placement: keys or kv; spine: one cluster size.
+INSTANTIATIONS = {"chunk_kernel": 34, "local_kernel": 34, "cross_kernel": 2,
+                  "cross_cols_kernel": 26, "fused_kernel": 29,
+                  "block_sort_kernel": 16, "place_kernel": 2,
+                  "spine_kernel": 1}
 
 
 def build() -> None:
@@ -306,7 +313,10 @@ def kernel_cases(mode, n: int, extra: bool):
     """(kernel, spec args, units) as the main path launches them at n
     elements with the path's chunks; with `extra`, also clipped grids, a
     single-span earlier round, a round split into more than one span, the
-    chunk and local kernels at every chunk from MIN_CHUNK to the carry's
+    cross kernel at every span from 1 to the carry's cap, or to the
+    largest round n holds (the round's lowest and highest stages,
+    MIN_CHUNK chunks, a clipped grid), the chunk and local kernels at
+    every chunk from MIN_CHUNK to the carry's
     register cap, and the fused kernel at every group from two MIN_CHUNK
     chunks to the cap (groups of MIN_CHUNK chunks and of two chunks, from
     round 1 and from the last round alone)."""
@@ -323,6 +333,12 @@ def kernel_cases(mode, n: int, extra: bool):
                   ("local", (C, 2), (n // (C << 2) - 1) << 2),
                   ("cross", (C, r - 1, 0, r - 1), n // (C << (r - 1)))]
     cases += [("cross", (C, r, t_lo, s), n // (C << r)) for t_lo, s in spans]
+    if extra:  # the cross kernel's geometry changes with the span
+        top = min(mode.cross_cap, bk.log2(n // MIN_CHUNK))
+        units = max(n // (MIN_CHUNK << top) - 1, 1)
+        cases += [("cross", (MIN_CHUNK, top, t_lo, s), units)
+                  for s in range(1, top + 1)
+                  for t_lo in sorted({0, top - s})]
     if extra:  # the register kernels' geometry changes with C and G
         C = MIN_CHUNK
         while C <= mode.reg_cap:
@@ -1038,8 +1054,9 @@ def e2e_times(sorts, keys, vals, card: str, lib: str = "library") -> dict:
 def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
     """Per kernel over TIMED_RUNS runs of the path's sorts: launch time,
     bound and, for one run, the plain version's time at the same shapes.
-    Returns the sums per kernel (per (kernel, carry) with `by_mode`; K7
-    and K8 also per (kernel, "keys" | "kv")) and every launch's record."""
+    Returns the sums per kernel (per (kernel, carry) with `by_mode`; else
+    the network kernels also per (kernel, carry), K7 and K8 per (kernel,
+    "keys" | "kv")) and every launch's record."""
     for fn in sorts.values():  # warm
         fn()
     torch.cuda.synchronize()
@@ -1070,6 +1087,8 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
             slots = [(k, carry) if by_mode else k]
             if "key_value" in rec and not by_mode:
                 slots.append((k, "kv" if rec["key_value"] else "keys"))
+            elif carry and not by_mode:
+                slots.append((k, carry))
             for a in (*(per.setdefault(x, acc()) for x in slots),
                       by_tag.setdefault((rec["tag"], k, carry), acc())):
                 a["n"] += 1
@@ -2088,7 +2107,8 @@ def auto_phase(card: str, ms32: dict, ms64: dict, sizes=SWEEP_SIZES) -> dict:
 
 PROFILE_SORTS = 5
 KERNEL_LABELS = {"chunk_kernel": "K1", "fused_kernel": "K2",
-                 "cross_kernel": "K3", "local_kernel": "K4"}
+                 "cross_cols_kernel": "K3", "cross_kernel": "K3",
+                 "local_kernel": "K4"}
 
 
 def _union_us(spans) -> float:
@@ -2296,6 +2316,13 @@ def main() -> int:
                        "max_abs_err": err_carry[key, c],
                        **figures(per64[key, c])}
                       if key in W64_KERNELS else None)
+        if key in ("chunk", "cross"):  # by 32-bit carry; launches in one
+            # run of the timed sorts (path_sorts), bound share = bound / ms
+            row["carries"] = {
+                c: {**figures(per[key, c]),
+                    "launches": per[key, c]["n"] // TIMED_RUNS,
+                    "bound_share": per[key, c]["bound"] / per[key, c]["ms"]}
+                for c in ("keys", "pairs", "stable")}
         if key in ("block_sort", "place"):  # the radix sorts by kind
             for kind in ("keys", "kv"):
                 row[kind] = figures(per[key, kind])

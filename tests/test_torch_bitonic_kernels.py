@@ -12,6 +12,9 @@ compared. The CUDA kernels themselves are held against their plain
 versions on the card in `test_torch_cuda.py` and `chip_smoke.py`.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -36,15 +39,15 @@ MODES = {
 }
 
 
-def _data(mode_name: str, seed: int):
+def _data(mode_name: str, seed: int, n: int = NP2):
     """(port buffers, JAX arrays, indices of the arrays to compare)."""
     rng = np.random.default_rng(seed)
-    k = rng.integers(0, 2**32, NP2, dtype=np.uint64).astype(np.uint32)
-    v = rng.integers(0, 2**32, NP2, dtype=np.uint64).astype(np.uint32)
+    k = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    v = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
     if mode_name != "keys":  # duplicates, so the second word decides
         k %= np.uint32(7)
         k[::11] = 0xFFFFFFFF
-    idx = np.arange(NP2, dtype=np.uint32)
+    idx = np.arange(n, dtype=np.uint32)
     if mode_name in ("w3", "w4_big"):  # few (hi, lo): the third word decides
         lo = rng.integers(0, 3, NP2).astype(np.uint32)
         lo[::13] = 0xFFFFFFFF
@@ -222,34 +225,61 @@ def test_fused_from_round_two_matches_jax(mode_name):
                                       np.asarray(out[i]).reshape(-1))
 
 
-@pytest.mark.parametrize("spans", [[(1, 1), (0, 1)], [(0, 2)]])
-@pytest.mark.parametrize("mode_name", ["keys", "pairs", "w4_big"])
+def _cross_span_cases():
+    """(mode name, spans of one round): round 2 as one span or two, in
+    three carries; and each 32-bit carry's deepest span (its
+    `Mode.cross_cap`), alone and split in two."""
+    cases = []
+    for name in ("keys", "pairs", "w4_big"):
+        cases += [pytest.param(name, [(1, 1), (0, 1)], id=f"{name}-spans0"),
+                  pytest.param(name, [(0, 2)], id=f"{name}-spans1")]
+    for name in ("keys", "pairs", "stable"):
+        cap = MODES[name][0].cross_cap
+        half = cap // 2
+        cases += [pytest.param(name, [(0, cap)], id=f"{name}-deepest"),
+                  pytest.param(name, [(half, cap - half), (0, half)],
+                               id=f"{name}-deepest-split")]
+    return cases
+
+
+@pytest.mark.parametrize("mode_name,spans", _cross_span_cases())
 def test_cross_spans_match_jax(mode_name, spans):
-    """Round 2's two cross stages, as one span or as two launches, equal
-    the JAX cross kernel's single pass."""
+    """A round's cross stages, as one span or as several launches, equal
+    the JAX cross kernel's single pass: round 2 at C = 1024, and the
+    carry's deepest span on one group of chunks of 256."""
     mode, jmode = MODES[mode_name]
-    port, jarrs, cmp = _data(mode_name, seed=6)
+    r = sum(s for _, s in spans)
+    c = C if r == 2 else MIN_CHUNK
+    port, jarrs, cmp = _data(mode_name, seed=6, n=c << r)
     for t_lo, span in spans:
-        bk.cross(port, mode, C, 2, t_lo, span, 1)
-    out = jbit._run_cross(jarrs, C, 2, jmode, True)
+        bk.cross(port, mode, c, r, t_lo, span, 1)
+    out = jbit._run_cross(jarrs, c, r, jmode, True)
     for i in cmp:
         np.testing.assert_array_equal(port[i].numpy(),
                                       np.asarray(out[i]).reshape(-1))
 
 
-@pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
-def test_cross_span_split_is_exact(mode):
+SPLITS = {6: [(3, 3), (1, 2), (0, 1)], 8: [(4, 4), (1, 3), (0, 1)],
+          10: [(6, 4), (3, 3), (1, 2), (0, 1)]}
+
+
+@pytest.mark.parametrize("mode,r", [
+    *(pytest.param(m, 6, id=m.name) for m in bk.MODES),
+    *(pytest.param(m, m.cross_cap, id=f"{m.name}-deepest")
+      for m in (bk.KEYS, bk.PAIRS, bk.STABLE))])
+def test_cross_span_split_is_exact(mode, r):
     """Splitting a round's cross stages into spans of any size leaves the
-    result unchanged (port only; a larger round than the JAX tests run)."""
+    result unchanged (port only; larger rounds than the JAX tests run,
+    up to the 32-bit carries' deepest span)."""
     rng = np.random.default_rng(7)
-    n = 1 << 14
+    n = 256 << r
     arrs = [torch.from_numpy(
         rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32) % 97)
         for _ in range(mode.n_arrays)]
     ref = [a.clone() for a in arrs]
-    bk.cross(ref, mode, 256, 6, 0, 6, 1)
-    for t_lo, span in [(3, 3), (1, 2), (0, 1)]:
-        bk.cross(arrs, mode, 256, 6, t_lo, span, 1)
+    bk.cross(ref, mode, 256, r, 0, r, 1)
+    for t_lo, span in SPLITS[r]:
+        bk.cross(arrs, mode, 256, r, t_lo, span, 1)
     for a, b in zip(arrs, ref):
         assert torch.equal(a, b)
 
@@ -301,10 +331,44 @@ def test_smem_caps():
     # chunks and fused groups: W3 stops below its shared-memory cap
     assert [m.reg_cap for m in bk.MODES] == [1 << 15, 1 << 14, 1 << 14,
                                              1 << 13, 1 << 13]
+    # cross spans: registers in the 32-bit carries, shared memory in W3
+    # and W4_BIG (a 64-element-wide tile)
+    assert [m.cross_cap for m in bk.MODES] == [10, 8, 8, 8, 7]
     for mode in bk.MODES:
-        for r in range(1, 20):
+        for r in range(1, 20):  # every round of a 2^25 sort, and more
             spans = tbit._cross_spans(r, mode)
             assert sum(s for _, s in spans) == r
-            assert all(bk.CROSS_W << s <= mode.smem_cap for _, s in spans)
+            assert all(s <= mode.cross_cap for _, s in spans)
             assert [t for t, _ in spans] == sorted(
                 (t for t, _ in spans), reverse=True)
+
+
+def _cuh_constant(name: str) -> int:
+    src = (Path(bk.__file__).parents[1] / "csrc" / "bitonic.cuh").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
+def test_cross_geometry_mirrors_the_cuda_source():
+    """The span cap's inputs are the constants bitonic.cuh builds with:
+    kColsVec columns and kColsWordsCompared compared words a thread (the
+    32-bit carries' cap is twice the log2 of the span positions that
+    leaves) and kLogCrossW, the three-word tile's width."""
+    assert _cuh_constant("kColsVec") == bk.COLS_VEC
+    assert _cuh_constant("kColsWordsCompared") == bk.COLS_WORDS_COMPARED
+    assert _cuh_constant("kLogCrossW") == bk.LOG_CROSS_W
+    for mode in bk.MODES:
+        rows = bk.COLS_WORDS_COMPARED // (bk.COLS_VEC * mode.words)
+        want = (2 * bk.log2(rows) if mode.words < 3 else
+                bk.log2(mode.smem_cap) - bk.LOG_CROSS_W)
+        assert mode.cross_cap == want
+
+
+@pytest.mark.parametrize("mode", bk.MODES, ids=lambda m: m.name)
+def test_cross_span_over_the_cap_raises(mode):
+    """A span at the cap runs; one past it is refused before any launch."""
+    cap = mode.cross_cap
+    arrs = [torch.zeros(256 << (cap + 1), dtype=torch.int32)
+            .view(torch.uint32) for _ in range(mode.n_arrays)]
+    bk.cross(arrs, mode, 256, cap, 0, cap, 2)
+    with pytest.raises(ValueError, match="cap"):
+        bk.cross(arrs, mode, 256, cap + 1, 0, cap + 1, 1)

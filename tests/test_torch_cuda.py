@@ -160,6 +160,43 @@ def test_cuda_fused_every_group(cuda_device, mode, G):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+def _cross_cases():
+    """(mode, span) for every span of the 32-bit carries' cross kernel."""
+    return [pytest.param(mode, s, id=f"{mode.name}-{s}")
+            for mode in (bk.KEYS, bk.PAIRS, bk.STABLE)
+            for s in range(1, mode.cross_cap + 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,span", _cross_cases())
+def test_cuda_cross_every_span(cuda_device, mode, span):
+    """K3 bitwise equal to its plain version at every span up to the
+    carry's cap, whose thread and tile geometry changes with the span: the
+    round's lowest and highest stages on MIN_CHUNK chunks and on the main
+    path's chunks, on a clipped grid, with and without a validity mask;
+    the stable carry's riding values under tied tuples stay put."""
+    rng = np.random.default_rng(100 * span + mode.code)
+    r = mode.cross_cap
+    for C in (MIN_CHUNK, CHUNK_KEYS if mode is bk.KEYS else CHUNK_CARRY):
+        n = max(1 << 22, 2 * (C << r))
+        units = n // (C << r) - 1
+        flags = torch.from_numpy(rng.integers(0, 2, units).astype(np.int32))
+        for t_lo in sorted({0, r - span}):
+            launch = bk.spec("cross", C, r, t_lo, span)
+            for valid in (None, flags.to(cuda_device)):
+                a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
+                     .to(cuda_device) for _ in range(mode.n_arrays)]
+                if mode.ride:  # a tail of tied (max, ..., pad) tuples
+                    _tie_tail(a, mode, n // 2)
+                b = [x.clone() for x in a]
+                bk.run(launch, a, mode, units, valid)
+                bk.run_plain(launch, b, mode, units, valid)
+                torch.cuda.synchronize()
+                for x, y in zip(a, b):
+                    assert torch.equal(x.view(torch.int32),
+                                       y.view(torch.int32)), (C, t_lo, valid)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("block", [512 << i for i in range(6)])
@@ -203,6 +240,10 @@ def test_cuda_unaligned_buffer_is_refused(cuda_device):
         bk.local([k[1:1 + 2048]], bk.KEYS, 1024, 1, 2)
     with pytest.raises(ValueError, match="aligned"):
         bk.fused([k[1:1 + 2048]], bk.KEYS, 256, 1, 3, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.cross([k[1:1 + 2048]], bk.KEYS, 256, 3, 0, 3, 1)
+    with pytest.raises(ValueError, match="aligned"):
+        bk.cross([k[1:1 + 2048], k[:2048]], bk.PAIRS, 256, 3, 0, 3, 1)
     with pytest.raises(ValueError, match="aligned"):
         k7.block_sort(k[1:1 + 2048], shift=0,
                       config=SortConfig(backend="radix", block=512))

@@ -6,7 +6,10 @@
 //   chunk_kernel   K1  _run_chunk / _chunk_phases_body   (bitonic.py:934, 513)
 //   fused_kernel   K2  _run_fused_rounds / _fused_rounds_body (723, 628),
 //                      in fused.cu, which nvcc builds beside this file
-//   cross_kernel   K3  _run_cross / _cross_kernel_body   (948, 579)
+//   cross_cols_kernel, cross_kernel
+//                  K3  _run_cross / _cross_kernel_body   (948, 579): the
+//                      first in the 32-bit carries, the second in W3 and
+//                      W4_BIG
 //   local_kernel   K4  _run_local / _local_kernel_body   (993, 604)
 //   `valid`        K5  _gate_body (746): a block whose flag is 0 returns at
 //                      once; the buffers are updated in place, so its region
@@ -49,10 +52,14 @@
 // registers or lanes, with a shared-memory transpose (one barrier) only
 // to reach distances of 32 threads and more (see Regs in network.cuh): the
 // fused kernel is the chunk kernel's last phases run on a group of chunks. The
-// cross kernel loads its tile once with coalesced accesses into shared
-// memory, runs every stage there with one __syncthreads() per stage, and
-// writes it back once; cluster (distributed shared memory) groups are
-// left for later work.
+// cross kernel of the 32-bit carries holds columns of the tile in
+// registers too (8-byte vector loads, every load issued first) and runs
+// a span's stages between them, with one transpose through shared memory
+// (one barrier) for spans deeper than a thread's rows (see Cols in
+// bitonic.cuh); the three-word carries' cross kernel loads its tile once
+// into shared memory and runs every stage there with one __syncthreads()
+// per stage. Cluster (distributed shared memory) groups are left for
+// later work.
 
 #include "bitonic.cuh"
 

@@ -112,9 +112,78 @@ __host__ __device__ constexpr int pad_index(int i) {
 
 __host__ __device__ constexpr int padded_words(int n) { return pad_index(n); }
 
+// E elements of a carry held by one thread in registers, and the
+// compare-exchanges between them: the base of Regs (K1, K2, K4) and of
+// Cols (K3 in the 32-bit carries, bitonic.cuh).
+template <int WORDS, int RIDE, int E>
+struct Elems {
+  uint32_t k[E];
+  uint32_t t[WORDS >= 2 ? E : 1];
+  uint32_t u[WORDS == 3 ? E : 1];
+  uint32_t v[RIDE ? E : 1];
+
+  // Every compared word; a riding value is never negated.
+  __device__ __forceinline__ void negate(int e, uint32_t m) {
+    k[e] ^= m;
+    if constexpr (WORDS >= 2) t[e] ^= m;
+    if constexpr (WORDS == 3) u[e] ^= m;
+  }
+
+  __device__ __forceinline__ void negate_all(uint32_t m) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) negate(e, m);
+  }
+
+  // Ascending compare-exchange of registers a < b; ties never swap. The
+  // first two words compare as one 64-bit word, a third word on a tie.
+  __device__ __forceinline__ void ce(int a, int b) {
+    if constexpr (WORDS == 1) {
+      const uint32_t x = k[a], y = k[b];
+      k[a] = min(x, y);
+      k[b] = max(x, y);
+    } else {
+      const uint32_t ka = k[a], ta = t[a];
+      const uint64_t xa = (uint64_t(ka) << 32) | ta;
+      const uint64_t xb = (uint64_t(k[b]) << 32) | t[b];
+      bool swap = xa > xb;
+      if constexpr (WORDS == 3) swap = swap || (xa == xb && u[a] > u[b]);
+      k[a] = swap ? k[b] : ka;
+      k[b] = swap ? ka : k[b];
+      t[a] = swap ? t[b] : ta;
+      t[b] = swap ? ta : t[b];
+      if constexpr (WORDS == 3) {
+        const uint32_t ua = u[a];
+        u[a] = swap ? u[b] : ua;
+        u[b] = swap ? ua : u[b];
+      }
+      if constexpr (RIDE != 0) {
+        const uint32_t va = v[a];
+        v[a] = swap ? v[b] : va;
+        v[b] = swap ? va : v[b];
+      }
+    }
+  }
+
+  // The stage between registers e and e ^ 2^jr of every thread.
+  __device__ __forceinline__ void reg_stage(int jr) {
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (!(e & (1 << jr))) ce(e, e | (1 << jr));
+  }
+};
+
 template <int WORDS, int RIDE, int LC,
           int THREADS = net_threads(WORDS, RIDE, LC)>
-struct Regs {
+struct Regs : Elems<WORDS, RIDE, (1 << LC) / THREADS> {
+  using Base = Elems<WORDS, RIDE, (1 << LC) / THREADS>;
+  using Base::k;
+  using Base::t;
+  using Base::u;
+  using Base::v;
+  using Base::negate;
+  using Base::negate_all;
+  using Base::ce;
+  using Base::reg_stage;
   static constexpr int kThreads = THREADS;
   static constexpr int E = (1 << LC) / kThreads;  // elements per thread
   static constexpr int L = log2_of(E);
@@ -129,11 +198,6 @@ struct Regs {
   static constexpr int kShflUnroll = RIDE != 0 || WORDS == 3 ? 1 : 5;
   static constexpr size_t kSmemBytes =
       kUsesSmem ? size_t(WORDS_PAD) * 4 * (WORDS + RIDE) : 0;
-
-  uint32_t k[E];
-  uint32_t t[WORDS >= 2 ? E : 1];
-  uint32_t u[WORDS == 3 ? E : 1];
-  uint32_t v[RIDE ? E : 1];
 
   // First global index of the thread's elements.
   static __device__ __forceinline__ uint64_t base() {
@@ -185,55 +249,6 @@ struct Regs {
 
   static __device__ __forceinline__ uint4 pack(const uint32_t* a, int q) {
     return make_uint4(a[4 * q], a[4 * q + 1], a[4 * q + 2], a[4 * q + 3]);
-  }
-
-  // Every compared word; a riding value is never negated.
-  __device__ __forceinline__ void negate(int e, uint32_t m) {
-    k[e] ^= m;
-    if constexpr (WORDS >= 2) t[e] ^= m;
-    if constexpr (WORDS == 3) u[e] ^= m;
-  }
-
-  __device__ __forceinline__ void negate_all(uint32_t m) {
-#pragma unroll
-    for (int e = 0; e < E; ++e) negate(e, m);
-  }
-
-  // Ascending compare-exchange of registers a < b; ties never swap. The
-  // first two words compare as one 64-bit word, a third word on a tie.
-  __device__ __forceinline__ void ce(int a, int b) {
-    if constexpr (WORDS == 1) {
-      const uint32_t x = k[a], y = k[b];
-      k[a] = min(x, y);
-      k[b] = max(x, y);
-    } else {
-      const uint32_t ka = k[a], ta = t[a];
-      const uint64_t xa = (uint64_t(ka) << 32) | ta;
-      const uint64_t xb = (uint64_t(k[b]) << 32) | t[b];
-      bool swap = xa > xb;
-      if constexpr (WORDS == 3) swap = swap || (xa == xb && u[a] > u[b]);
-      k[a] = swap ? k[b] : ka;
-      k[b] = swap ? ka : k[b];
-      t[a] = swap ? t[b] : ta;
-      t[b] = swap ? ta : t[b];
-      if constexpr (WORDS == 3) {
-        const uint32_t ua = u[a];
-        u[a] = swap ? u[b] : ua;
-        u[b] = swap ? ua : u[b];
-      }
-      if constexpr (RIDE != 0) {
-        const uint32_t va = v[a];
-        v[a] = swap ? v[b] : va;
-        v[b] = swap ? va : v[b];
-      }
-    }
-  }
-
-  // The stage between registers e and e ^ 2^jr of every thread.
-  __device__ __forceinline__ void reg_stage(int jr) {
-#pragma unroll
-    for (int e = 0; e < E; ++e)
-      if (!(e & (1 << jr))) ce(e, e | (1 << jr));
   }
 
   // The stage between lanes l and l ^ m: the lower lane keeps the smaller

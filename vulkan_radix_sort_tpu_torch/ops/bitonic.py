@@ -11,8 +11,8 @@ Counterpart of the single-chip sort path of
      a. fused (K2): the first rounds together, while a group of 2^r chunks
         fits one block's shared memory;
      b. then per round, cross (K3) for the stages at distances >= C (split
-        into spans of stages that fit shared memory) and local (K4) for the
-        stages at distances < C.
+        into spans of at most the carry's `Mode.cross_cap` stages) and
+        local (K4) for the stages at distances < C.
 
 What changed for Hopper: the fused group is bounded by shared memory
 (232,448 bytes a block) instead of VMEM, and the stage budgets that capped
@@ -39,7 +39,7 @@ import torch
 
 from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
 from . import bitonic_kernels as bk
-from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, CROSS_W, log2
+from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, log2
 from .bitops import check_u32, pad_u32
 from ..utils import timing
 
@@ -89,10 +89,9 @@ def _fused_rounds(C: int, nrounds: int, mode) -> int:
 
 def _cross_spans(r: int, mode) -> list[tuple[int, int]]:
     """Round r's r cross stages (t = r-1 .. 0) as (t_lo, span) runs, high
-    first, each of whose tiles (CROSS_W << span elements) fits shared
-    memory; spans are balanced so tiles stay as small as the split allows."""
-    smax = log2(mode.smem_cap) - log2(CROSS_W)
-    k = cdiv(r, smax)
+    first, each within the carry's span cap (`Mode.cross_cap`); spans are
+    balanced so tiles stay as small as the split allows."""
+    k = cdiv(r, mode.cross_cap)
     sizes = [r // k + (1 if i < r % k else 0) for i in range(k)]
     spans, t_hi = [], r
     for s in sizes:

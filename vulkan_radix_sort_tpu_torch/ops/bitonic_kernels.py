@@ -16,8 +16,10 @@ them, see `Mode`), over the first `nunits` grid units only; a unit whose
 `valid` flag (int32, one per unit) is 0 is left as it is. What bounds each
 kernel on an H100 and what its design does about it is noted in the CUDA
 source. The chunk, local and fused kernels hold E elements per thread in
-registers (`block_geometry`) and load them as 16-byte vectors, so their
-buffers must be 16-byte aligned (`check_aligned`).
+registers (`block_geometry`) and load them as 16-byte vectors; in the
+32-bit carries the cross kernel holds columns of span positions in
+registers, loaded as 8-byte vectors. So every network kernel's buffers
+must be 16-byte aligned (`check_aligned`).
 
 K6 is K4's kernel launched over every C-block of a slot buffer under the
 slot merge's per-block mask, with no prefix clip: on the TPU it exists
@@ -65,9 +67,22 @@ class Mode(NamedTuple):
 
     @property
     def smem_cap(self) -> int:
-        """Elements of this carry one thread block holds in shared memory
-        (the cross kernel's largest tile)."""
+        """Elements of this carry one thread block holds in shared
+        memory."""
         return smem_elems(4 * self.n_arrays)
+
+    @property
+    def cross_cap(self) -> int:
+        """Deepest span of one cross (K3) launch (cross_cap_log in
+        csrc/bitonic.cuh): in the 32-bit carries twice the log2 of the
+        span positions a thread holds in registers, COLS_WORDS_COMPARED
+        compared words in columns COLS_VEC wide (one transpose between its
+        two layouts): 10 for keys, 8 for pairs and stable; in the
+        three-word ones a tile 2^LOG_CROSS_W elements wide in shared
+        memory."""
+        if self.words == 3:
+            return log2(self.smem_cap) - LOG_CROSS_W
+        return 2 * log2(COLS_WORDS_COMPARED // (COLS_VEC * self.words))
 
     @property
     def reg_cap(self) -> int:
@@ -87,9 +102,13 @@ W3 = Mode("w3", 3, 3, 0)          # (hi, lo, v): non-stable 64-bit kv
 W4_BIG = Mode("w4_big", 4, 3, 1)  # (hi, lo, idx) compared, v rides
 MODES = (KEYS, PAIRS, STABLE, W3, W4_BIG)
 
-# consecutive elements per row of a cross tile; kCrossW in csrc/bitonic.cu
+# log2 of the consecutive elements per row of a three-word cross tile
+# (kLogCrossW in csrc/bitonic.cuh); in the 32-bit carries a cross thread
+# holds COLS_VEC consecutive columns and COLS_WORDS_COMPARED compared
+# words in registers (kColsVec, kColsWordsCompared).
 LOG_CROSS_W = 6
-CROSS_W = 1 << LOG_CROSS_W
+COLS_VEC = 2
+COLS_WORDS_COMPARED = 64
 
 # The chunk, local and fused kernels keep E elements per thread in
 # registers (net_threads and kNetThreads in csrc/network.cuh): 16 keys or 8
@@ -114,7 +133,7 @@ def block_geometry(kernel: str, mode: Mode, C: int) -> tuple[int, int]:
     """(threads, elements per thread) of a chunk or local launch at C, or
     of a fused launch on groups of C elements."""
     if kernel not in REG_KERNELS:
-        raise ValueError(f"{kernel} keeps its tile in shared memory")
+        raise ValueError(f"{kernel} has no chunk or group geometry")
     threads = min(max(C // (16 if mode.words == 1 else 8), WARP), NET_THREADS)
     if C // threads * mode.n_arrays >= REG_WORDS:
         threads = WIDE_THREADS
@@ -149,7 +168,6 @@ class Launch(NamedTuple):
 
     kernel: str
     unit: int      # elements per grid unit; a valid flag covers one unit
-    tile: int      # elements one block holds in shared memory
     stages: tuple  # (j, p): pair i with i ^ 2^j, descending iff bit p of i
     cfn: str       # C entry point
     cargs: tuple   # its arguments after (mode, a0, a1, a2, a3, n_units)
@@ -165,11 +183,11 @@ def spec(kernel: str, C: int, *args: int) -> Launch:
     if kernel == "chunk":
         stages = tuple((pj, pk) for pk in range(1, lc + 1)
                        for pj in range(pk - 1, -1, -1))
-        return Launch(kernel, C, C, stages, "vrs_chunk", (lc,))
+        return Launch(kernel, C, stages, "vrs_chunk", (lc,))
     if kernel in ("local", "local_gated"):
         (r,) = args
         stages = tuple((pj, lc + r) for pj in range(lc - 1, -1, -1))
-        return Launch(kernel, C, C, stages, "vrs_local", (lc, r))
+        return Launch(kernel, C, stages, "vrs_local", (lc, r))
     if kernel == "fused":
         r_lo, r_hi = args
         if not 1 <= r_lo <= r_hi:
@@ -177,14 +195,14 @@ def spec(kernel: str, C: int, *args: int) -> Launch:
         stages = tuple((j, lc + r) for r in range(r_lo, r_hi + 1)
                        for j in range(lc + r - 1, -1, -1))
         g = C << r_hi
-        return Launch(kernel, g, g, stages, "vrs_fused", (lc, r_lo, r_hi))
+        return Launch(kernel, g, stages, "vrs_fused", (lc, r_lo, r_hi))
     if kernel == "cross":
         r, t_lo, span = args
         if span < 1 or t_lo < 0 or t_lo + span > r:
             raise ValueError(f"bad cross span t_lo={t_lo} span={span} r={r}")
         stages = tuple((lc + t, lc + r)
                        for t in range(t_lo + span - 1, t_lo - 1, -1))
-        return Launch(kernel, C << r, CROSS_W << span, stages, "vrs_cross",
+        return Launch(kernel, C << r, stages, "vrs_cross",
                       (lc, r, t_lo, span))
     raise ValueError(f"unknown kernel {kernel!r}")
 
@@ -202,12 +220,13 @@ def _check(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
     if not 0 <= nunits * launch.unit <= n:
         raise ValueError(f"{nunits} units of {launch.unit} exceed {n} "
                          "elements")
-    reg = launch.kernel in REG_KERNELS
-    cap = mode.reg_cap if reg else mode.smem_cap
-    if launch.tile > cap:
-        raise ValueError(f"a {launch.kernel} tile of {launch.tile} "
-                         f"{mode.name} elements exceeds the "
-                         f"{'register' if reg else 'shared-memory'} cap {cap}")
+    if launch.kernel in REG_KERNELS and launch.unit > mode.reg_cap:
+        raise ValueError(f"a {launch.kernel} tile of {launch.unit} "
+                         f"{mode.name} elements exceeds the register cap "
+                         f"{mode.reg_cap}")
+    if launch.kernel == "cross" and launch.cargs[-1] > mode.cross_cap:
+        raise ValueError(f"a cross span of {launch.cargs[-1]} exceeds the "
+                         f"{mode.name} carry's cap {mode.cross_cap}")
     if valid is None and launch.kernel == "local_gated":
         raise ValueError("local_gated needs a per-block valid mask")
     if valid is not None and (
