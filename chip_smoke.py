@@ -24,11 +24,11 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      16384 and both digit widths, with uniform keys, few distinct digits
      and one key only, and at the main path's 2^25 shapes, keys and
      key-value, with a ragged last block of sentinel pads;
-  4. main path, once per backend ('network', 'radix', then 'auto', which
-     picks a backend per kind of sort from the sorter's n): the public
-     entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value) at
-     n = 2^25 and the other shapes below, each bitwise equal to a numpy
-     oracle computed once for all three; each sort's launches, read from
+  4. main path, once per backend ('network', 'radix', 'reference', then
+     'auto', which picks a backend per kind of sort from the sorter's n):
+     the public entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value)
+     at n = 2^25 and the other shapes below, each bitwise equal to a numpy
+     oracle computed once for all four; each sort's launches, read from
      a launch recorder, must be those of its kind's backend (radix: K7,
      the spine and K8 exactly num_passes times; network: network kernels
      only; reference: none); the kernels' launch counters are zeroed just
@@ -40,7 +40,9 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      'auto' (the '[launches] auto' line: the kernels of every backend
      'auto' picked, 32- and 64-bit, and no other);
   5. times on the card with CUDA events, of sorts that name their
-     backend: end to end with torch.sort as the yardstick, and per kernel
+     backend: end to end (network, radix and the reference backend) with
+     torch.sort of the sign-flipped signed view as the yardstick, and per
+     kernel
      with its bound and its plain version; for the 64-bit sorts per
      kernel and carry;
   6. slot merges: a slot buffer of 4 slots x 2^24 (slack-2 fill with the
@@ -117,6 +119,7 @@ from __future__ import annotations
 import json
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -147,6 +150,7 @@ SEED = 0
 TIMED_RUNS = 3
 NETWORK = SortConfig(backend="network")
 RADIX = SortConfig(backend="radix")
+REFERENCE = SortConfig(backend="reference")
 RAGGED_TAIL = 1000   # sentinel pads closing the last block of a K7/K8 check
 WORLD = 4            # ranks of the distributed path, all on cuda:0
 N_RANK = 1 << 25     # keys per rank (2^27 in all)
@@ -984,11 +988,13 @@ def library_ms(rec) -> float:
 
 def path_sorts(n: int = N):
     """The main path's sorts at n, as closures for timing: the network's
-    five, and the radix backend's keys, stable kv and keys count=."""
+    five, and the radix and reference backends' keys, stable kv and keys
+    count=."""
     keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     sorter = vrs.Sorter(n, config=NETWORK)
     rsorter = vrs.Sorter(n, config=RADIX)
+    ref = vrs.Sorter(n, config=REFERENCE)
     cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
     sorts = {
         "keys": lambda: sorter.sort(keys),
@@ -1001,17 +1007,22 @@ def path_sorts(n: int = N):
         "radix_keys": lambda: rsorter.sort(keys),
         "radix_stable_kv": lambda: rsorter.sort_key_value(keys, vals),
         "radix_keys_count": lambda: rsorter.sort(keys, count=cnt),
+        "reference_keys": lambda: ref.sort(keys),
+        "reference_stable_kv": lambda: ref.sort_key_value(keys, vals),
+        "reference_keys_count": lambda: ref.sort(keys, count=cnt),
     }
     return sorts, keys, vals
 
 
 def path_sorts64(n: int = N):
     """The 64-bit path's sorts at n on uniform uint64 keys, as closures
-    for timing: keys, stable and non-stable kv, each also with count=."""
+    for timing: the network's keys, stable and non-stable kv, each also
+    with count=, and the reference backend's keys and stable kv."""
     rng = np.random.default_rng(SEED + 32)
     keys = to_dev(rng.integers(0, 2**64, n, dtype=np.uint64), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     sorter = vrs.Sorter(n, key_dtype=torch.uint64, config=NETWORK)
+    ref = vrs.Sorter(n, key_dtype=torch.uint64, config=REFERENCE)
     cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
     sorts = {
         "u64_keys": lambda: sorter.sort(keys),
@@ -1023,6 +1034,8 @@ def path_sorts64(n: int = N):
                                                              count=cnt),
         "u64_nonstable_kv_count": lambda: sorter.sort_key_value(
             keys, vals, count=cnt, stable=False),
+        "u64_reference_keys": lambda: ref.sort(keys),
+        "u64_reference_stable_kv": lambda: ref.sort_key_value(keys, vals),
     }
     return sorts, keys, vals
 
@@ -1033,10 +1046,11 @@ def e2e_times(sorts, keys, vals, card: str, lib: str = "library") -> dict:
         s = time_fn(fn, iters=10, repeats=5)
         e2e[f"{name}_ms"] = s * 1e3
         e2e[f"{name}_gitems_per_s"] = N / s / 1e9
-    # Yardsticks only: the port never calls torch.sort on its kernel
-    # paths. torch.sort has no CUDA kernel for uint32 (or uint64), so it
-    # sorts the int32 (int64) bit patterns with the sign bit flipped (same
-    # order, same bytes).
+    # Yardsticks: the port calls torch.sort on no kernel path; its
+    # reference backend is this same sort (ops/reference.py). torch.sort
+    # has no CUDA kernel for uint32 (or uint64), so it sorts the int32
+    # (int64) bit patterns with the sign bit flipped (same order, same
+    # bytes).
     bits = 8 * keys.element_size()
     signed = torch.int32 if bits == 32 else torch.int64
     flipped = keys.view(signed) ^ -(1 << (bits - 1))
@@ -1929,6 +1943,16 @@ def crossover(mine: dict, ref: dict) -> int | None:
     return at
 
 
+def crossovers(ms: dict, engines) -> dict:
+    """For each engine and sort kind, `crossover` against the reference
+    backend over the sizes of `ms` ((backend, sort, n) -> ms)."""
+    sizes = {n for _, _, n in ms}
+    return {f"{name}_{sort}": crossover(
+        {n: ms[name, sort, n] for n in sizes},
+        {n: ms["reference", sort, n] for n in sizes})
+        for name in engines for sort in SWEEP_SORTS}
+
+
 def sweep_phase(card: str) -> dict:
     """harness.measure for the three card backends at powers of two from
     2^14 to 2^25, keys, kv and kvns, each backend after its correctness
@@ -1957,11 +1981,8 @@ def sweep_phase(card: str) -> dict:
                       for sort in ("keys", "kv"))]
     log("[sweep]", json.dumps({"backend": "cpp", "host": True,
                                "results": rows}))
-    cross = {f"{name}_{sort}": crossover(
-        {n: ms[name, sort, n] for n in SWEEP_SIZES},
-        {n: ms["reference", sort, n] for n in SWEEP_SIZES})
-        for name in ("network", "radix") for sort in SWEEP_SORTS}
-    log("[sweep] crossover vs reference", json.dumps(cross))
+    log("[sweep] crossover vs reference",
+        json.dumps(crossovers(ms, ("network", "radix"))))
     return ms
 
 
@@ -2035,11 +2056,32 @@ def sweep64_phase(card: str, sizes=SWEEP_SIZES) -> dict:
         log("[sweep64]", json.dumps({"backend": name, "card": card,
                                      "keys": "uint64", "gate": "ok",
                                      "results": rows}))
-    cross = {f"network_{sort}": crossover(
-        {n: ms["network", sort, n] for n in sizes},
-        {n: ms["reference", sort, n] for n in sizes}) for sort in SWEEP_SORTS}
-    log("[sweep64] crossover vs reference", json.dumps(cross))
+    log("[sweep64] crossover vs reference",
+        json.dumps(crossovers(ms, ("network",))))
     return ms
+
+
+def median_sweeps(card: str, repeats: int = 3) -> tuple[dict, dict]:
+    """`sweep_phase` and `sweep64_phase` `repeats` times in turns; the
+    median of each (backend, sort, n) point, logged with its runs'
+    least and most as `[sweep-median]` lines (uint32, then uint64) with
+    the crossovers of the medians. Returns the two median tables, which
+    `auto_phase` takes in place of one sweep's."""
+    runs = [(sweep_phase(card), sweep64_phase(card)) for _ in range(repeats)]
+    out = []
+    for i, (keys, engines) in enumerate((("uint32", ("network", "radix")),
+                                         ("uint64", ("network",)))):
+        tables = [r[i] for r in runs]
+        med = {p: statistics.median(t[p] for t in tables) for p in tables[0]}
+        rows = [{"backend": b, "sort": s, "n": n, "ms": med[b, s, n],
+                 "lo": min(t[b, s, n] for t in tables),
+                 "hi": max(t[b, s, n] for t in tables)}
+                for b, s, n in sorted(med)]
+        log("[sweep-median]", json.dumps({
+            "card": card, "keys": keys, "repeats": repeats,
+            "crossover": crossovers(med, engines), "results": rows}))
+        out.append(med)
+    return out[0], out[1]
 
 
 # -- phase 11c: what 'auto' picks ---------------------------------------------
@@ -2270,6 +2312,7 @@ def main() -> int:
     oracles = {}
     launches = _path_launches(NETWORK, NETWORK_KERNELS, oracles)
     launches.update(_path_launches(RADIX, RADIX_KERNELS, oracles))
+    _path_launches(REFERENCE, BACKEND_KERNELS["reference"], oracles)
     carries = _path_launches64(oracles)
     auto_launches = _auto_launches(oracles)
     del oracles

@@ -36,15 +36,15 @@ CHUNK = 256
 
 
 def test_auto_constants():
-    """Pins the H100 constants, from chip_smoke.py's `[sweep] crossover
-    vs reference` and `[sweep64] crossover vs reference` lines (one NVIDIA
-    H100 80GB HBM3 at 700 W; PERF.md section 5, the larger cut of two
-    runs). 32-bit: radix has the most GItems/s at 2^25 for every kind and
-    beats the reference backend from 2^22 (keys) and 2^23 (kv, kvns).
-    64-bit: the network, the only engine, does not beat the reference at
-    2^25 for any kind, so 'auto' is the reference at every n."""
+    """Pins the H100 constants, from chip_smoke.py's two `[sweep-median]`
+    lines, the crossovers of the median of three sweeps in one run (one
+    NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5). 32-bit: radix has
+    the most GItems/s at 2^25 for every kind and beats the one-sort
+    reference backend from 2^23 (keys, kv, kvns). 64-bit: the network,
+    the only engine, does not beat the reference at 2^25 for any kind, so
+    'auto' is the reference at every n."""
     assert sorter.AUTO == {
-        ("keys", False): ("radix", 1 << 22),
+        ("keys", False): ("radix", 1 << 23),
         ("kv", False): ("radix", 1 << 23),
         ("kvns", False): ("radix", 1 << 23),
         ("keys", True): ("network", None),

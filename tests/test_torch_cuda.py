@@ -720,6 +720,42 @@ def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
         k[:n - 7][np.argsort(u[:n - 7], kind="stable")].view(np.uint64))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.uint32, torch.uint64], ids=str)
+def test_cuda_reference_backend_matches_numpy(cuda_device, dtype):
+    """The reference backend on the card at 2^20 (one torch.sort of the
+    sign-flipped signed view a sort): keys, stable and non-stable kv,
+    each also with count= on the device, genuine maximum keys in the
+    range; no kernel launched. Stable order either way."""
+    n = 1 << 20
+    if dtype == torch.uint64:
+        k = _keys64(n, 50)
+    else:
+        k = _u32(n, 50)
+        k[::101] = 0xFFFFFFFF
+    v = datagen.generate_values(n, seed=51)
+    s = vrs.Sorter(n, key_dtype=dtype, device=cuda_device,
+                   config=SortConfig(backend="reference"))
+    dk = torch.from_numpy(k).to(cuda_device)
+    dv = torch.from_numpy(v).to(cuda_device)
+    width = k.dtype
+    with timing.LaunchTimer() as t:
+        for m in (n, n - 999, 0, 1):
+            cnt = None if m == n else torch.tensor(m, device=cuda_device)
+            o = np.argsort(k[:m], kind="stable")
+            wk = np.concatenate([k[:m][o], k[m:]])
+            wv = np.concatenate([v[:m][o], v[m:]])
+            got = s.sort(dk, count=cnt).cpu().numpy().view(width)
+            np.testing.assert_array_equal(got, wk)
+            for stable in (True, False):
+                gk, gv = s.sort_key_value(dk, dv, count=cnt, stable=stable)
+                np.testing.assert_array_equal(gk.cpu().numpy().view(width),
+                                              wk)
+                np.testing.assert_array_equal(gv.cpu().numpy(), wv)
+        torch.cuda.synchronize()
+    assert t.records == []
+
+
 NET_LAUNCHES = ("chunk", "fused", "cross", "local")
 
 STAGE_SORTS = {  # carry -> (stage_times call, the sort it times)

@@ -11,6 +11,7 @@ imports JAX or the JAX package.
 import ast
 import dataclasses
 import importlib.util
+import json
 import os
 import shutil
 import subprocess
@@ -303,8 +304,9 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     """chip_smoke.py's kernel-vs-plain (K6 through the slot-merge phase,
     K3 and K4 through the half merge) and main-path phases, rehearsed at a
     small size on the CPU (plain versions): the network, then the radix
-    backend, then 'auto' with the card's decisions at 2^9 times the size
-    (so each kind takes the engine it takes at 2^25 on the card), against
+    and the reference backends, then 'auto' with the card's decisions at
+    2^9 times the size (so each kind takes the engine it takes at 2^25 on
+    the card), against
     one set of oracles, each sort's recorded launches held to its kind's
     backend; then the 64-bit path on the network and through 'auto'; then
     the 64-bit sweep's gates, and the '[auto]' report on a made-up
@@ -330,6 +332,8 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
         "network"}
     shared = len(oracles)
     assert set(cs.main_path(config=cs.RADIX, **kw).values()) == {"radix"}
+    assert set(cs.main_path(config=cs.REFERENCE, **kw).values()) == {
+        "reference"}
     real = sorter._pick_backend
     monkeypatch.setattr(
         sorter, "_pick_backend",
@@ -364,3 +368,49 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
             ["reference"] * 2 + ["radix"] * 2
         assert [x["picked"] for x in r["sizes"]] == \
             [x["best"] for x in r["sizes"]]
+
+
+def test_chip_smoke_median_sweeps(monkeypatch):
+    """chip_smoke.median_sweeps on made-up sweeps: each (backend, sort, n)
+    point is the median of its runs, and the crossovers it logs are those
+    of the medians: the first run's outlying reference time at 2^16 alone
+    would move radix's cut to 2^17, the median keeps it at 2^16."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    sizes = (1 << 14, 1 << 15, 1 << 16, 1 << 17)
+    base = {"network": 2.0, "radix": 1.0, "reference": 1.5}
+
+    def table(r, backends):
+        return {(b, s, n): base[b] + 0.1 * r
+                + (1.0 if b == "radix" and n < 1 << 16 else 0.0)
+                - (0.8 if (r, b, n) == (0, "reference", 1 << 16) else 0.0)
+                for b in backends for s in cs.SWEEP_SORTS for n in sizes}
+    calls, lines = [], []
+
+    def sweep32(card):
+        calls.append(32)
+        return table(calls.count(32) - 1, ("network", "radix", "reference"))
+
+    def sweep64(card):
+        calls.append(64)
+        return table(calls.count(64) - 1, ("network", "reference"))
+    monkeypatch.setattr(cs, "sweep_phase", sweep32)
+    monkeypatch.setattr(cs, "sweep64_phase", sweep64)
+    monkeypatch.setattr(cs, "log", lambda *a: lines.append(a))
+    med32, med64 = cs.median_sweeps("card", repeats=3)
+    assert calls == [32, 64] * 3
+    assert med32["radix", "keys", 1 << 16] == pytest.approx(1.1)
+    assert med32["reference", "keys", 1 << 16] == pytest.approx(1.6)
+    assert set(med64) == {k for k in med32 if k[0] != "radix"}
+    assert cs.crossovers(table(0, base), ("radix",))["radix_keys"] == 1 << 17
+    logged = [json.loads(a[1]) for a in lines if a[0] == "[sweep-median]"]
+    assert [x["keys"] for x in logged] == ["uint32", "uint64"]
+    assert logged[0]["crossover"]["radix_keys"] == 1 << 16
+    assert logged[0]["crossover"]["network_kv"] is None
+    assert logged[1]["crossover"] == {f"network_{s}": None
+                                      for s in cs.SWEEP_SORTS}
+    row = next(x for x in logged[0]["results"] if (
+        x["backend"], x["sort"], x["n"]) == ("reference", "kv", 1 << 16))
+    assert (row["lo"], row["ms"], row["hi"]) == pytest.approx((0.7, 1.6, 1.7))

@@ -43,26 +43,28 @@ from ..utils.timing import StageTimes, time_fn
 
 
 # 'auto' on a CUDA device, per sort kind and key width: (engine, cut).
-# Below the cut the reference backend (a torch.sort and a gather) runs,
-# from the cut the engine; a cut of None means the engine did not beat
-# the reference at 2^25, so 'auto' is the reference at every n. The
-# engine is the kernel backend with the most GItems/s at 2^25 among those
-# that sort the kind (network and radix for 32-bit keys; the network
-# alone for 64-bit keys, which radix refuses); the cut is the smallest
-# swept n (2^14..2^25) from which it beats the reference at every larger
-# swept size (chip_smoke.crossover), the larger of two runs, since below
-# 2^22 times move up to 2x between runs. Two runs of chip_smoke.py on one
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 5):
-#   [sweep] crossover vs reference: radix_keys 2^22 and 2^22, radix_kv
-#     2^22 and 2^23, radix_kvns 2^23 and 2^22; at 2^25 radix 1.92-1.96 /
-#     2.96 / 2.95-2.96 ms (keys / kv / kvns), the network 4.66 /
-#     13.4-13.5 / 9.77-9.80, the reference 5.32-5.35 / 6.33-6.37 /
-#     6.35-6.36;
-#   [sweep64] crossover vs reference: network_keys, _kv, _kvns null in
-#     both; at 2^25 the network 11.1 / 19.8-19.9 / 16.0 ms, the reference
-#     5.71-5.73 / 6.76-6.77 / 6.75-6.76.
+# Below the cut the reference backend (one torch.sort) runs, from the
+# cut the engine; a cut of None means the engine did not beat the
+# reference at 2^25, so 'auto' is the reference at every n. The engine is
+# the kernel backend with the most GItems/s at 2^25 among those that sort
+# the kind (network and radix for 32-bit keys; the network alone for
+# 64-bit keys, which radix refuses); the cut is the smallest swept n
+# (2^14..2^25) from which it beats the reference at every larger swept
+# size (chip_smoke.crossover), taken on the median of three sweeps in one
+# run (chip_smoke.median_sweeps), since below 2^22 one sweep's times move
+# up to 2x. The `[sweep-median]` lines of chip_smoke.py on one NVIDIA
+# H100 80GB HBM3, 700.00 W (PERF.md section 5, call 2):
+#   uint32, crossover vs reference: radix_keys, _kv, _kvns 2^23; network
+#     null; at 2^23 radix 0.467 / 0.696 / 0.699 ms (keys / kv / kvns)
+#     against the reference's 0.576 / 0.706 / 0.717, at 2^22 0.389 /
+#     0.547 / 0.505 against 0.335 / 0.387 / 0.382; at 2^25 radix 1.578 /
+#     2.406 / 2.398, the network 3.039 / 11.956 / 7.799, the reference
+#     1.969 / 3.010 / 3.013;
+#   uint64, crossover vs reference: network_keys, _kv, _kvns null; at
+#     2^25 the network 9.178 / 19.873 / 16.016 ms, the reference 4.703 /
+#     5.736 / 5.736.
 AUTO = {
-    ("keys", False): ("radix", 1 << 22),
+    ("keys", False): ("radix", 1 << 23),
     ("kv", False): ("radix", 1 << 23),
     ("kvns", False): ("radix", 1 << 23),
     ("keys", True): ("network", None),
@@ -191,12 +193,13 @@ class Sorter:
         the index tiebreak and values for stable key-value). radix: the two
         ping-pong key buffers (and two value buffers) padded to a block
         multiple, one pass's (nblocks, radix) histogram and run offsets,
-        and the spine's digit totals and offsets. reference: int64-widened
-        keys, torch.sort's int64 values and indices, and the gathered
-        uint32 outputs. 64-bit keys, any backend: the padded (hi, lo) word
-        buffers (plus the index tiebreak and values for key-value) and the
-        8-byte input and output keys, as in the JAX package. The backend
-        sized is the one the sort runs: `backend_kv` for key-value.
+        and the spine's digit totals and offsets. reference: the flipped
+        int32 view of the keys, torch.sort's values and int64 indices, the
+        output keys (and the gathered values). 64-bit keys, any backend:
+        the padded (hi, lo) word buffers (plus the index tiebreak and
+        values for key-value) and the 8-byte input and output keys, as in
+        the JAX package. The backend sized is the one the sort runs:
+        `backend_kv` for key-value.
         """
         if self.wide:
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
@@ -210,7 +213,7 @@ class Sorter:
             n = round_up(self.max_n, cfg.block)
             tables = 2 * (n // cfg.block) * cfg.radix + 2 * cfg.radix
             return 4 * (2 * n * (2 if key_value else 1) + tables)
-        return self.max_n * (8 * 3 + 4 * (2 if key_value else 1))
+        return self.max_n * (4 * 3 + 8 + (4 if key_value else 0))
 
     # -- checks ------------------------------------------------------------
 

@@ -1,40 +1,58 @@
-"""Reference backend: stable sorts expressed with `torch.sort`.
+"""Reference backend: each sort is one `torch.sort`.
 
-Counterpart of `vulkan_radix_sort_tpu/ops/reference.py` (`lax.sort`). It is
-the port's non-network backend and the oracle its other paths are held to:
-`std::sort` for keys and `std::stable_sort` of an index array for key-value,
-as in the reference's bench/cpu_benchmark.cc. It is not the plain version
-of any network kernel; those live beside the kernels in `bitonic_kernels`.
-Keys are widened to int64 first, where every comparison is defined; 64-bit
-keys (the `*64` functions, encoded as uint64) are sorted as their int64
-view with the sign bit flipped, which has the same order.
+Counterpart of `vulkan_radix_sort_tpu/ops/reference.py`, whose `sort_keys`
+is one `jnp.sort` and whose `sort_pairs` is one stable `lax.sort` of
+(keys, values), and of the JAX Sorter's 64-bit reference path,
+`dec(jnp.sort(enc(keys)))`. It is the port's non-network backend and the
+oracle its other paths are held to: `std::sort` for keys and
+`std::stable_sort` of an index array for key-value, as in the reference's
+bench/cpu_benchmark.cc. It is not the plain version of any kernel; those
+live beside the kernels in `bitonic_kernels`, `block_sort` and
+`stream_place`.
+
+torch has no CUDA sort for uint32 or uint64, so the keys are sorted as
+their signed view with the sign bit flipped (`bitops.decode_i32` /
+`decode_i64`), which has the unsigned order and the same width, and the
+sorted values are flipped back (`encode_i32` / `encode_i64`). A keys sort
+uses the sorted values alone; a pair sort is one stable sort whose
+indices gather the values, never the keys.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .bitops import (decode_i64, max_like_u32, max_like_u64, select_u32,
-                     select_u64, widen_u32)
+from .bitops import (decode_i32, decode_i64, encode_i32, encode_i64,
+                     max_like_u32, max_like_u64, select_u32, select_u64)
+
+# uint dtype -> (to the signed view with the same order, and back)
+_SIGNED = {torch.uint32: (decode_i32, encode_i32),
+           torch.uint64: (decode_i64, encode_i64)}
 
 
-def _order(keys: torch.Tensor) -> torch.Tensor:
-    return torch.sort(widen_u32(keys), stable=True).indices
+def _sort(keys: torch.Tensor, stable: bool = False):
+    """(sorted keys, permutation): one torch.sort of the flipped view."""
+    to_signed, to_unsigned = _SIGNED[keys.dtype]
+    s, perm = torch.sort(to_signed(keys), stable=stable)
+    return to_unsigned(s), perm
 
 
-def _gather(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    return x.view(torch.int32)[perm].view(torch.uint32)
+def _take(values: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
+    """uint32 values gathered by `perm`, through their int32 view."""
+    return values.view(torch.int32)[perm].view(torch.uint32)
 
 
 def sort_keys(keys: torch.Tensor) -> torch.Tensor:
-    """Ascending sort of uint32 keys."""
-    return _gather(keys, _order(keys))
+    """Ascending sort of uint32 keys (equal keys are equal bits, so
+    stability is irrelevant)."""
+    return _sort(keys)[0]
 
 
 def sort_pairs(keys: torch.Tensor, values: torch.Tensor):
-    """Stable ascending key-value sort (values gathered by the key order)."""
-    perm = _order(keys)
-    return _gather(keys, perm), _gather(values, perm)
+    """Stable ascending key-value sort: the values gathered by the keys'
+    stable order."""
+    k, perm = _sort(keys, stable=True)
+    return k, _take(values, perm)
 
 
 def _in_range(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
@@ -51,30 +69,24 @@ def sort_keys_count(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
 
 def sort_pairs_count(keys: torch.Tensor, values: torch.Tensor,
                      count: torch.Tensor):
-    """Stable key-value sort of the first `count` pairs; tails untouched."""
+    """Stable key-value sort of the first `count` pairs; tails untouched.
+    The masked tail holds 0xFFFFFFFF keys at the largest indices, so the
+    stable sort leaves it behind every genuine 0xFFFFFFFF key."""
     live = _in_range(keys, count)
     masked = select_u32(live, keys, max_like_u32(keys))
     k, v = sort_pairs(masked, values)
     return select_u32(live, k, keys), select_u32(live, v, values)
 
 
-def _order64(keys: torch.Tensor) -> torch.Tensor:
-    return torch.sort(decode_i64(keys), stable=True).indices
-
-
-def _gather64(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    return x.view(torch.int64)[perm].view(torch.uint64)
-
-
 def sort_keys64(keys: torch.Tensor) -> torch.Tensor:
     """Ascending sort of uint64 keys."""
-    return _gather64(keys, _order64(keys))
+    return _sort(keys)[0]
 
 
 def sort_pairs64(keys: torch.Tensor, values: torch.Tensor):
     """Stable ascending key-value sort of uint64 keys, uint32 values."""
-    perm = _order64(keys)
-    return _gather64(keys, perm), _gather(values, perm)
+    k, perm = _sort(keys, stable=True)
+    return k, _take(values, perm)
 
 
 def sort_keys64_count(keys: torch.Tensor,
