@@ -179,13 +179,23 @@ BITONIC_CU = "vulkan_radix_sort_tpu_torch/csrc/bitonic.cu"
 FUSED_CU = "vulkan_radix_sort_tpu_torch/csrc/fused.cu"
 RADIX_CU = "vulkan_radix_sort_tpu_torch/csrc/radix.cu"
 W64_CU = "vulkan_radix_sort_tpu_torch/csrc/network_w64.cu"
+WIDE_CUH = "vulkan_radix_sort_tpu_torch/csrc/wide.cuh"  # their K1 and K2
 REGS = "redesigned: registers, warp shuffles, a transpose pair per phase"
 KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
     "chunk": ("K1 chunk", BITONIC_CU,
-              "vulkan_radix_sort_tpu/ops/bitonic.py:934", REGS),
+              "vulkan_radix_sort_tpu/ops/bitonic.py:934",
+              f"keys, pairs, stable: {REGS}; w3, w4_big: redesigned "
+              "(csrc/wide.cuh): w3 a merge sort (16 elements a thread in "
+              "registers, then merge-path levels through shared memory), "
+              "w4_big the network at 16 elements a thread, far stages in "
+              "registers after a transpose, run-time loops over one copy of "
+              "each stage; both with a borrow-chain compare"),
     "fused": ("K2 fused rounds", FUSED_CU,
               "vulkan_radix_sort_tpu/ops/bitonic.py:723",
-              REGS + " (K1's last phases on a group)"),
+              f"keys, pairs, stable, w4_big: {REGS} (K1's last phases on a "
+              "group); w3: redesigned (csrc/wide.cuh), w4_big's K1 "
+              "network in persistent blocks that stage the next group in "
+              "shared memory (cp.async) while they sort the current one"),
     "cross": ("K3 cross", BITONIC_CU,
               "vulkan_radix_sort_tpu/ops/bitonic.py:948",
               "redesigned for keys, pairs, stable: register columns "
@@ -252,13 +262,17 @@ def launch_counts() -> dict[str, int]:
 # Instantiations each kernel template has in csrc/: the report must name
 # every one, so that the spill check covers them all. chunk and local: C
 # from 2^8 to the register cap, 8 for keys, 7 for each two-word carry and
-# 6 for each three-word one; fused: G from 2^9 to the cap, 7 + 6 + 6 +
-# 5 + 5; cross: the register-column kernel at every span from 1 to the
+# 6 for each three-word one, whose chunks take csrc/wide.cuh's kernels (the
+# merge sort in w3, the network up to 2^12 in w4_big; chunk_kernel at 2^13);
+# fused: G from 2^9 to the cap, 7 + 6 + 6 + 5 (w4_big), and 5 of
+# fused_wide_kernel (w3); cross: the register-column kernel at every span from 1 to the
 # cap, 10 for keys and 8 for pairs and stable, the shared-memory one in
 # w3 and w4_big; block sort: keys or kv, 4 to 32 keys a thread, 4- or
 # 8-bit digits; placement: keys or kv; spine: one cluster size.
-INSTANTIATIONS = {"chunk_kernel": 34, "local_kernel": 34, "cross_kernel": 2,
-                  "cross_cols_kernel": 26, "fused_kernel": 29,
+INSTANTIATIONS = {"chunk_kernel": 23, "chunk_merge_kernel": 6,
+                  "chunk_wide_kernel": 5, "local_kernel": 34,
+                  "cross_kernel": 2, "cross_cols_kernel": 26,
+                  "fused_kernel": 24, "fused_wide_kernel": 5,
                   "block_sort_kernel": 16, "place_kernel": 2,
                   "spine_kernel": 1}
 
@@ -295,22 +309,30 @@ def build() -> None:
 
 # -- phase 3: kernel vs plain ------------------------------------------------
 
-def _inputs(mode, n: int, gen, device) -> list[torch.Tensor]:
+def _inputs(mode, n: int, gen, device, tail: int | None = None
+            ) -> list[torch.Tensor]:
     """Seeded buffers; every compared word but the last takes few distinct
-    values, so the next word decides. The stable carries' last eighth is
-    tied (max key, pad tiebreak) tuples with distinct riding values, as a
-    count= tail holds them: a kernel must leave each riding value where it
-    is."""
+    values, so the next word decides. The stable carries hold tied (max
+    key, pad tiebreak) tuples with distinct riding values from `tail` on
+    (by default the last eighth), as a count= tail holds them: a kernel
+    must leave each riding value where the network puts it."""
     def rand(lo=-(1 << 31), hi=1 << 31):
         return torch.randint(lo, hi, (n,), generator=gen, device=device,
                              dtype=torch.int32)
     arrs = [rand(0, 13) for _ in range(mode.words - 1)]
     arrs += [rand() for _ in range(mode.ride + 1)]
     if mode.ride:
+        start = n - n // 8 if tail is None else tail
         for a in arrs[:mode.words - 1]:
-            a[-n // 8:] = -1
-        arrs[mode.words - 1][-n // 8:] = bitonic.STABLE_PAD_IDX
+            a[start:] = -1
+        arrs[mode.words - 1][start:] = bitonic.STABLE_PAD_IDX
     return [x.view(torch.uint32) for x in arrs]
+
+
+def straddling_tail(n: int) -> int:
+    """Where a stable carry's tied tail starts mid-chunk, as a count= that
+    is no multiple of the chunk leaves it."""
+    return n - n // 8 - CHUNK_CARRY // 2 - 3
 
 
 def kernel_cases(mode, n: int, extra: bool):
@@ -466,7 +488,12 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
     by_mode = {} if by_mode is None else by_mode
     for n, extra in sizes:
         for mode in bk.MODES:
-            for kernel, args, units in kernel_cases(mode, n, extra):
+            cases = [(c, None) for c in kernel_cases(mode, n, extra)]
+            if extra and mode.ride:  # the main path's launches, the tied
+                # tail starting mid-chunk
+                cases += [(c, straddling_tail(n))
+                          for c in kernel_cases(mode, n, False)]
+            for (kernel, args, units), tail in cases:
                 launch = bk.spec(kernel, *args)
                 for gated in (False, True):
                     valid = None
@@ -474,7 +501,7 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
                         valid = torch.randint(0, 2, (units,), generator=gen,
                                               device=device, dtype=torch.int32)
                         valid[0] = 0
-                    a = _inputs(mode, n, gen, device)
+                    a = _inputs(mode, n, gen, device, tail)
                     b = [x.clone() for x in a]
                     bk.run(launch, a, mode, units, valid)
                     bk.run_plain(launch, b, mode, units, valid)
@@ -489,6 +516,8 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
                         th, per = bk.block_geometry(kernel, mode,
                                                     launch.unit)
                         geo = f" threads={th} E={per}"
+                    if tail is not None:
+                        geo += f" tail={tail}"
                     log(f"[kernel] n={n} {kernel} {mode.name} {args} "
                         f"units={units}{geo} gated={gated} max_abs_err={e}")
                     if e != 0:
@@ -871,7 +900,8 @@ def _bound(nbytes: float, ops: float) -> tuple[float, str]:
 def bound_ms(rec) -> tuple[float, str]:
     """Least time for a launch's work: HBM bytes (each input read and each
     output written once) or int32 operations, whichever is larger. Network:
-    every element of the units it runs. K7: keys (and values) in and out
+    every element of the units it runs, through its stages (W3's chunk
+    kernel, a merge sort: `merge_ops`). K7: keys (and values) in and out
     plus the histogram out. Spine: the histogram in, the run offsets and
     g out. K8: keys (and values), the histogram and the run offsets in,
     keys (and values) out."""
@@ -889,8 +919,21 @@ def bound_ms(rec) -> tuple[float, str]:
     units = rec["nunits"] if valid is None else int(
         valid[:rec["nunits"]].sum())
     elems = units * launch.unit
-    return _bound(2 * elems * 4 * mode.n_arrays,
-                  len(launch.stages) * (elems // 2) * OPS_PER_CE[mode.name])
+    ops = len(launch.stages) * (elems // 2) * OPS_PER_CE[mode.name]
+    if (launch.kernel, mode) == ("chunk", bk.W3):
+        ops = merge_ops(launch.unit) * elems
+    return _bound(2 * elems * 4 * mode.n_arrays, ops)
+
+
+def merge_ops(C: int) -> float:
+    """int32 operations an element of W3's chunk kernel, a merge sort
+    (csrc/wide.cuh): the network on a thread's E registers, then one
+    compare (a compare per word) and a select per word for each element at
+    each of log2(C / E) merge levels."""
+    threads, e = bk.block_geometry("chunk", bk.W3, C)
+    le = bk.log2(e)
+    return (le * (le + 1) // 2 * OPS_PER_CE["w3"] / 2
+            + bk.log2(C // e) * OPS_PER_CE["w3"])
 
 
 def _u32_zeros(n: int) -> torch.Tensor:
@@ -2355,7 +2398,9 @@ def main() -> int:
         # the 64-bit carries: launches on the 64-bit path, times over its
         # sorts (path_sorts64)
         for c in W64_CARRIES:
-            row[c] = ({"source": W64_CU, "launches": carries[c][key],
+            src = (WIDE_CUH if key == "chunk" or (key, c) == ("fused", "w3")
+                   else W64_CU)
+            row[c] = ({"source": src, "launches": carries[c][key],
                        "max_abs_err": err_carry[key, c],
                        **figures(per64[key, c])}
                       if key in W64_KERNELS else None)

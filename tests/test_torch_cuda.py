@@ -160,6 +160,38 @@ def test_cuda_fused_every_group(cuda_device, mode, G):
                 assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", [bk.STABLE, bk.W3, bk.W4_BIG],
+                         ids=lambda m: m.name)
+def test_cuda_network_tail_mid_chunk(cuda_device, mode):
+    """K1, K2, K3 and K4 at the main path's chunk and group bitwise equal
+    to their plain versions when a stable carry's tied (max, max, pad)
+    tail with distinct riding values starts mid-chunk, as a count= that is
+    no multiple of C leaves it; W3 (no ties: every word compared) on the
+    same shapes, with few distinct (hi, lo) so the third word decides. The
+    three-word carries' K1 and K2 are csrc/wide.cuh's kernels."""
+    rng = np.random.default_rng(17 + mode.code)
+    n = 1 << 18
+    C = CHUNK_CARRY
+    r = bk.log2(n // C)
+    launches = [bk.spec("chunk", C),
+                bk.spec("fused", C, 1, tbit._fused_rounds(C, r, mode)),
+                bk.spec("local", C, r)]
+    launches += [bk.spec("cross", C, r, t_lo, span)
+                 for t_lo, span in tbit._cross_spans(r, mode)]
+    for launch in launches:
+        a = [torch.from_numpy(_u32(n, int(rng.integers(1 << 30)), 50))
+             .to(cuda_device) for _ in range(mode.n_arrays)]
+        if mode.ride:
+            _tie_tail(a, mode, n - n // 8 - C // 2 - 3)
+        b = [x.clone() for x in a]
+        bk.run(launch, a, mode, n // launch.unit)
+        bk.run_plain(launch, b, mode, n // launch.unit)
+        torch.cuda.synchronize()
+        for x, y in zip(a, b):
+            assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
 def _cross_cases():
     """(mode, span) for every span of the 32-bit carries' cross kernel."""
     return [pytest.param(mode, s, id=f"{mode.name}-{s}")

@@ -26,7 +26,7 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "_build"
 SOURCES = ("bitonic.cu", "fused.cu", "network_w64.cu", "radix.cu")
 # included by bitonic.cu, fused.cu and network_w64.cu
-HEADERS = ("network.cuh", "bitonic.cuh", "fused.cuh")
+HEADERS = ("network.cuh", "bitonic.cuh", "fused.cuh", "wide.cuh")
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)

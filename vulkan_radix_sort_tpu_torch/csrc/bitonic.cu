@@ -31,8 +31,8 @@
 // MODE_W3, bitonic.py:201) and W4_BIG <3,1> ((hi, lo, idx) compared, v
 // rides: MODE_W4_BIG, :203). The three-word carries compare (hi, lo) as
 // one 64-bit word and the third word on a tie; their instantiations are
-// built from the same templates (bitonic.cuh, fused.cuh) in
-// network_w64.cu, which nvcc compiles beside this file. The JAX package's
+// built in network_w64.cu, which nvcc compiles beside this file, from the
+// same templates, except K1 and W3's K2, which are wide.cuh's. The JAX package's
 // MODE_W4 and MODE_PACKED (a packed lane-origin tiebreak) compute the
 // same function as W4_BIG and STABLE and do not carry over. CUDA compares
 // unsigned words natively, so none of the Mosaic workarounds of the TPU

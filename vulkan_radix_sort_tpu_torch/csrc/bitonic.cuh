@@ -6,6 +6,7 @@
 #pragma once
 
 #include "network.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -166,7 +167,8 @@ __global__ void __launch_bounds__(kMaxThreads)
 }
 
 // Launch K1 (r < 0) or K4 at C = 2^LC; layout B needs shared memory only
-// when a stage lies at distance 2^(L+5) or more.
+// when a stage lies at distance 2^(L+5) or more. K1 in the three-word
+// carries is wide.cuh's where wide_chunk admits it, chosen at compile time.
 template <int W, int R, int LC>
 int launch_chunk_local(const Bufs<W, R>& g, long long nunits, int r,
                        const int* valid, cudaStream_t st) {
@@ -174,10 +176,14 @@ int launch_chunk_local(const Bufs<W, R>& g, long long nunits, int r,
   constexpr size_t smem = Rg::kSmemBytes;
   cudaError_t e;
   if (r < 0) {
-    e = allow_smem(chunk_kernel<W, R, LC>, smem);
-    if (e != cudaSuccess) return int(e);
-    chunk_kernel<W, R, LC><<<unsigned(nunits), Rg::kThreads, smem, st>>>(
-        g, valid);
+    if constexpr (W == 3 && wide_chunk(R, LC)) {
+      return launch_chunk_wide<W, R, LC>(g, nunits, valid, st);
+    } else {
+      e = allow_smem(chunk_kernel<W, R, LC>, smem);
+      if (e != cudaSuccess) return int(e);
+      chunk_kernel<W, R, LC><<<unsigned(nunits), Rg::kThreads, smem, st>>>(
+          g, valid);
+    }
   } else {
     e = allow_smem(local_kernel<W, R, LC>, smem);
     if (e != cudaSuccess) return int(e);

@@ -5,6 +5,7 @@
 #pragma once
 
 #include "network.cuh"
+#include "wide.cuh"
 
 namespace {
 
@@ -60,17 +61,22 @@ __global__ void __launch_bounds__(THREADS, fused_min_blocks(WORDS, RIDE, LG))
   x.store(g, R::base());
 }
 
-// K2 on groups of 2^LG elements.
+// K2 on groups of 2^LG elements; in W3 fused_wide_kernel (wide.cuh),
+// chosen at compile time.
 template <int W, int R, int LG>
 int launch_fused_lg(const Bufs<W, R>& g, long long ngroups, int lc, int r_lo,
                     const int* valid, cudaStream_t st) {
-  constexpr int kThreads = fused_threads(W, R, LG);
-  constexpr size_t smem = Regs<W, R, LG, kThreads>::kSmemBytes;
-  cudaError_t e = allow_smem(fused_kernel<W, R, LG>, smem);
-  if (e != cudaSuccess) return int(e);
-  fused_kernel<W, R, LG><<<unsigned(ngroups), kThreads, smem, st>>>(
-      g, lc, r_lo, valid);
-  return int(cudaGetLastError());
+  if constexpr (W == 3 && R == 0) {
+    return launch_fused_wide<W, R, LG>(g, ngroups, lc, r_lo, valid, st);
+  } else {
+    constexpr int kThreads = fused_threads(W, R, LG);
+    constexpr size_t smem = Regs<W, R, LG, kThreads>::kSmemBytes;
+    cudaError_t e = allow_smem(fused_kernel<W, R, LG>, smem);
+    if (e != cudaSuccess) return int(e);
+    fused_kernel<W, R, LG><<<unsigned(ngroups), kThreads, smem, st>>>(
+        g, lc, r_lo, valid);
+    return int(cudaGetLastError());
+  }
 }
 
 // K2 on groups of 2^(lc + r_hi) elements, from 2^9 (two MIN_CHUNK chunks)

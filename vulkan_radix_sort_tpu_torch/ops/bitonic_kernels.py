@@ -120,11 +120,19 @@ COLS_WORDS_COMPARED = 64
 # except there (fused_threads in csrc/fused.cuh): one such block fits an
 # SM, so it takes MAX_THREADS threads if a thread then holds at most half
 # of REG_WORDS words, else NET_THREADS.
+# In the three-word carries K1 and W3's K2 take their own design
+# (csrc/wide.cuh): W3's K1 is a merge sort with MERGE_ELEMS elements a
+# thread (kMergeElems); W4_BIG's K1 up to WIDE_MAX_THREADS threads a block
+# and W3's K2 a network with WIDE_ELEMS (kWideElems, kWideMaxThreads), at
+# least one warp a block.
 NET_THREADS = 512
 WIDE_THREADS = 256
 MAX_THREADS = 1024
 REG_WORDS = 64
 REG_WORDS_COMPARED = 128
+WIDE_ELEMS = 16
+WIDE_MAX_THREADS = 256
+MERGE_ELEMS = 16
 WARP = 32
 REG_KERNELS = ("chunk", "local", "local_gated", "fused")
 
@@ -134,6 +142,14 @@ def block_geometry(kernel: str, mode: Mode, C: int) -> tuple[int, int]:
     of a fused launch on groups of C elements."""
     if kernel not in REG_KERNELS:
         raise ValueError(f"{kernel} has no chunk or group geometry")
+    if mode is W3 and kernel in ("chunk", "fused"):
+        threads = max(C // (MERGE_ELEMS if kernel == "chunk" else
+                            WIDE_ELEMS), WARP)
+        return threads, C // threads
+    if (mode is W4_BIG and kernel == "chunk"
+            and max(C // WIDE_ELEMS, WARP) <= WIDE_MAX_THREADS):
+        threads = max(C // WIDE_ELEMS, WARP)
+        return threads, C // threads
     threads = min(max(C // (16 if mode.words == 1 else 8), WARP), NET_THREADS)
     if C // threads * mode.n_arrays >= REG_WORDS:
         threads = WIDE_THREADS
