@@ -21,9 +21,11 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      and at the main path's 2^25 shapes. The radix backend's
      (block sort K7, the spine, placement K8 with the pass's shift and
      the spine kernel's offsets) at 2^20 at every block from 512 to
-     16384 and both digit widths, with uniform keys, few distinct digits
-     and one key only, and at the main path's 2^25 shapes, keys and
-     key-value, with a ragged last block of sentinel pads;
+     16384 and both digit widths, with uniform keys, few distinct digits,
+     two digits at every shift and one key only, then at 301 default
+     blocks (no multiple of K7's resident grid) and at the main path's
+     2^25 shapes on uniform keys and two digits, keys and key-value, with
+     a ragged last block of sentinel pads;
   4. main path, once per backend ('network', 'radix', 'reference', then
      'auto', which picks a backend per kind of sort from the sorter's n):
      the public entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value)
@@ -152,6 +154,10 @@ NETWORK = SortConfig(backend="network")
 RADIX = SortConfig(backend="radix")
 REFERENCE = SortConfig(backend="reference")
 RAGGED_TAIL = 1000   # sentinel pads closing the last block of a K7/K8 check
+TWO_DIGITS = -2      # `_radix_inputs`: keys of two digits at every shift
+# 301 blocks of the default 16384 keys: no multiple of K7's resident grid
+# (132 SMs on an H100), so thread blocks walk 2 or 3 blocks each
+N_ODD = 301 * (1 << 14)
 WORLD = 4            # ranks of the distributed path, all on cuda:0
 N_RANK = 1 << 25     # keys per rank (2^27 in all)
 SLOTS, SLOT = 4, 1 << 24  # the slot buffer of 4 ranks x 2^25: slack 2
@@ -212,8 +218,10 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
                     "K4 under the slot merge's block mask"),
     "block_sort": ("K7 radix block sort", RADIX_CU,
                    "vulkan_radix_sort_tpu/ops/block_sort.py:154",
-                   "redesigned: match-based block rank in registers, "
-                   "16-byte copies, one scatter"),
+                   "redesigned twice: resident blocks that walk the "
+                   "blocks, keys loaded ahead and sorted blocks stored by "
+                   "the bulk copy engine (TMA), ranks from shared match "
+                   "words (atomic OR) and one count add a digit group"),
     "place": ("K8 radix placement", RADIX_CU,
               "vulkan_radix_sort_tpu/ops/stream_place.py:228",
               "redesigned: digit from the key, one shared delta lookup a "
@@ -387,12 +395,16 @@ def _max_abs_err(got, want) -> int:
 
 
 def _radix_inputs(n: int, hi: int | None, gen, device):
-    """Seeded keys (below `hi`, if given, for few distinct digits) whose
-    last RAGGED_TAIL slots are sentinel pads, as `radix.sort_u32` pads a
-    ragged last block; and seeded values, 0 under the pads."""
-    lo, top = (0, hi) if hi else (-(1 << 31), 1 << 31)
+    """Seeded keys (below `hi`, if given, for few distinct digits; with
+    `hi` = TWO_DIGITS, every byte 0x2a or 0x2b, so that about 16 lanes of
+    a slot share each digit) whose last RAGGED_TAIL slots are sentinel
+    pads, as `radix.sort_u32` pads a ragged last block; and seeded values,
+    0 under the pads."""
+    lo, top = (0, hi) if hi and hi > 0 else (-(1 << 31), 1 << 31)
     k = torch.randint(lo, top, (n,), generator=gen, device=device,
                       dtype=torch.int32)
+    if hi == TWO_DIGITS:
+        k = 0x2A2A2A2A + (k & 0x01010101)
     v = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
                       device=device, dtype=torch.int32)
     k[-RAGGED_TAIL:] = KEY_SENTINEL - (1 << 32)
@@ -402,30 +414,42 @@ def _radix_inputs(n: int, hi: int | None, gen, device):
 
 def _radix_cases(extra: bool):
     """(block, bits, key bound, shifts) of the K7/K8 checks: the main
-    path's geometry at every shift; with `extra`, every block from
-    RADIX_THREADS to MAX_RADIX_BLOCK (K7's threads and keys a thread
-    change with it) at both digit widths, with uniform keys, few distinct
-    digits (keys < 16) and one key only (every lane a peer), at every
-    shift at the default block and at the lowest and highest elsewhere."""
+    path's geometry at every shift, on uniform keys and on keys of two
+    digits; with `extra`, every block from RADIX_THREADS to
+    MAX_RADIX_BLOCK (K7's threads and keys a thread change with it) at
+    both digit widths, with uniform keys, few distinct digits (keys < 16),
+    two digits at every shift (about 16 peers a lane) and one key only
+    (every lane a peer), at every shift at the default block and at the
+    lowest and highest elsewhere."""
     if not extra:
-        return [(RADIX.block, RADIX.digit_bits, None,
-                 range(0, 32, RADIX.digit_bits))]
+        return [(RADIX.block, RADIX.digit_bits, hi,
+                 range(0, 32, RADIX.digit_bits)) for hi in (None, TWO_DIGITS)]
     cases = []
     block = RADIX_THREADS
     while block <= MAX_RADIX_BLOCK:
         for bits in (4, 8):
             shifts = (range(0, 32, bits) if block == RADIX.block
                       else (0, 32 - bits))
-            cases += [(block, bits, hi, shifts) for hi in (None, 16, 1)]
+            cases += [(block, bits, hi, shifts)
+                      for hi in (None, 16, TWO_DIGITS, 1)]
         block *= 2
     return cases
 
 
-def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
+def _keys_label(hi: int | None) -> str:
+    return "keys=two-digits" if hi == TWO_DIGITS else f"keys<{hi or 2**32}"
+
+
+RADIX_CHECK_SIZES = ((N_CHECK, True), (N_ODD, False), (N, False))
+
+
+def check_radix_kernels(sizes=RADIX_CHECK_SIZES,
                         device="cuda") -> dict[str, int]:
     """K7, the spine and K8 against their plain versions on the same
     seeded inputs, keys and key-value (`_radix_cases`): at 2^20 at every
-    block and both digit widths, and at the main path's 2^25 shapes. The
+    block and both digit widths, at 301 default blocks (K7's resident
+    thread blocks walk 2 or 3 blocks each) and at the main path's 2^25
+    shapes (15 or 16 each). The
     spine and K8 take K7's plain output, so their runs are real; K8 takes
     the pass's shift and the spine kernel's offsets, as a radix pass
     launches it. Returns max |err| per kernel."""
@@ -464,7 +488,8 @@ def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
                                if name == "block_sort" else "")
                         log(f"[kernel] n={n} {name} block={block}{geo} "
                             f"bits={bits} {'kv' if kv else 'keys'} "
-                            f"shift={shift} keys<{hi or 2 ** 32} "
+                            f"shift={shift} "
+                            f"{_keys_label(hi)} "
                             f"max_abs_err={e}")
                         if e != 0:
                             raise AssertionError(
@@ -477,11 +502,13 @@ def check_radix_kernels(sizes=((N_CHECK, True), (N, False)),
 
 
 def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
-                  by_mode: dict | None = None) -> dict[str, int]:
+                  by_mode: dict | None = None,
+                  radix_sizes=RADIX_CHECK_SIZES) -> dict[str, int]:
     """Each network kernel against its plain version on the same seeded
     inputs, with and without a validity mask that has zeros, in every
     carry: at 2^20 with extra geometries, and at the main path's own
-    shapes (2^25); then the radix kernels (`check_radix_kernels`). Returns
+    shapes (2^25); then the radix kernels at `radix_sizes`
+    (`check_radix_kernels`). Returns
     max |err| per kernel; `by_mode` gets it per (kernel, carry) too."""
     gen = torch.Generator(device=device).manual_seed(SEED)
     err = {name: 0 for name in NETWORK_KERNELS}
@@ -525,7 +552,7 @@ def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
                             f"{kernel} {mode.name} {args}: the kernel "
                             "differs from its plain version")
                     del a, b
-    err.update(check_radix_kernels(sizes, device))
+    err.update(check_radix_kernels(radix_sizes, device))
     return err
 
 
@@ -1166,6 +1193,7 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
             f"ms/launch={a['ms'] / a['n']:.4f} "
             f"bound_ms/launch={a['bound'] / a['n']:.4f} "
             f"({max(a['by'], key=a['by'].get)}) "
+            f"share={a['bound'] / a['ms']:.3f} "
             f"plain_ms/launch={a['plain'] / max(a['nplain'], 1):.3f}{lib}")
     return per, timer.records
 
@@ -2413,7 +2441,9 @@ def main() -> int:
                 for c in ("keys", "pairs", "stable")}
         if key in ("block_sort", "place"):  # the radix sorts by kind
             for kind in ("keys", "kv"):
-                row[kind] = figures(per[key, kind])
+                row[kind] = {**figures(per[key, kind]),
+                             "bound_share": per[key, kind]["bound"]
+                             / per[key, kind]["ms"]}
         if key == "place":  # K8's column accumulation, a launch of its own
             row["spine"] = {"source": RADIX_CU, "launches": launches["spine"],
                             "auto_launches": auto_launches["spine"],

@@ -265,6 +265,67 @@ def test_cuda_block_sort_every_block(cuda_device, block, bits):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("block", [512 << i for i in range(6)])
+def test_cuda_block_sort_walks_blocks(cuda_device, block, bits):
+    """K7's resident thread blocks walk 2 or more blocks each: a block
+    count that is no multiple of the grid (twice the card's SMs times the
+    most blocks its threads let an SM hold, plus 7), bitwise equal to the
+    plain version on uniform keys, two digits at every shift (about 16
+    peers a lane), one digit and all-equal keys, with the index as the
+    value, so that any break in stability shows, keys and kv, at the
+    lowest and the highest shift."""
+    cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
+    threads, _ = k7.sort_geometry(block)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    nblocks = 2 * sms * (2048 // threads) + 7
+    n = nblocks * block
+    rng = np.random.default_rng(block * 3 + bits)
+    dv = torch.arange(n, dtype=torch.int32,
+                      device=cuda_device).view(torch.uint32)
+    base = _u32(n, block + bits)
+    for kind in ("uniform", "two digits", "one digit", "all equal"):
+        for shift in (0, 32 - bits):
+            keys = base.copy()
+            if kind == "two digits":
+                keys = np.uint32(0x2A2A2A2A) + (keys & np.uint32(0x01010101))
+            elif kind == "one digit":
+                digit = np.uint32(((1 << bits) - 1) << shift)
+                keys = (keys & ~digit) | np.uint32(5 << shift)
+            elif kind == "all equal":
+                keys = np.full(n, int(rng.integers(1 << 32)), np.uint32)
+            dk = torch.from_numpy(keys).to(cuda_device)
+            for kv in (False, True):
+                vals = dv if kv else None
+                want = k7.block_sort_plain(dk, vals, shift=shift, config=cfg,
+                                           key_value=kv)
+                got = k7.block_sort(dk, vals, shift=shift, config=cfg,
+                                    key_value=kv)
+                torch.cuda.synchronize()
+                for a, b in zip(got, want):
+                    assert torch.equal(a.view(torch.int32),
+                                       b.view(torch.int32)), (kind, shift, kv)
+
+
+@pytest.mark.cuda
+def test_cuda_radix_sorter_full_size_matches_numpy(cuda_device):
+    """The radix Sorter at 2^25 keys (the main path's size: 2048 blocks
+    on 132 resident thread blocks): keys, stable and non-stable kv
+    against numpy's stable argsort."""
+    n = 1 << 25
+    keys, vals = _u32(n, 25), _u32(n, 26)
+    s = vrs.Sorter(n, config=SortConfig(backend="radix"))
+    dk = torch.from_numpy(keys).to(cuda_device)
+    dv = torch.from_numpy(vals).to(cuda_device)
+    order = np.argsort(keys, kind="stable")
+    np.testing.assert_array_equal(s.sort(dk).cpu().numpy(), keys[order])
+    for stable in (True, False):
+        gk, gv = s.sort_key_value(dk, dv, stable=stable)
+        np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
+        np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
+
+
+@pytest.mark.cuda
 def test_cuda_unaligned_buffer_is_refused(cuda_device):
     k = torch.zeros(1 << 12, dtype=torch.int32,
                     device=cuda_device).view(torch.uint32)

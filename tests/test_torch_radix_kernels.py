@@ -13,6 +13,9 @@ kernels themselves are held against these plain versions on the card in
 `test_torch_cuda.py` and `chip_smoke.py`.
 """
 
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -24,7 +27,7 @@ from vulkan_radix_sort_tpu.ops.radix import _pad2d, _spine as jax_spine
 from vulkan_radix_sort_tpu.ops.stream_place import (
     stream_place as jax_stream_place)
 from vulkan_radix_sort_tpu_torch.config import (
-    MAX_RADIX_BLOCK, RADIX_THREADS, SortConfig)
+    MAX_RADIX_BLOCK, RADIX_THREADS, SMEM_BYTES, SortConfig)
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 
@@ -315,3 +318,172 @@ def test_wrappers_reject_bad_inputs():
             k8.stream_place(meta, mh, mg, config=CFG, shift=shift)
     with pytest.raises(ValueError, match="no kernel"):
         k8.stream_place(meta, mh, mg, config=CFG, shift=0)
+
+
+# -- K7's design (csrc/radix.cu), emulated warp by warp ----------------------
+
+RADIX_CU = (Path(k7.__file__).parents[1] / "csrc" / "radix.cu").read_text()
+
+
+def _constant(name: str) -> int:
+    return int(re.search(rf"constexpr int {name} = (\d+);", RADIX_CU)[1])
+
+
+def test_block_sort_layout_mirrors_the_cuda_source():
+    """sort_geometry, sort_stages, sort_smem and sort_grid hold the
+    constants and formulas of csrc/radix.cu: threads, keys a thread, key
+    buffers (three for keys, two for key-value), and every block and digit
+    width fits one H100 block's shared memory."""
+    assert _constant("kThreads") == RADIX_THREADS
+    assert _constant("kVecKeys") == k7.VECTOR_KEYS
+    assert _constant("kSmemBytes") == SMEM_BYTES
+    stages = re.search(r"int sort_stages\(bool kv\) \{ return kv \? (\d) : "
+                       r"(\d); \}", RADIX_CU)
+    assert (k7.sort_stages(True), k7.sort_stages(False)) == \
+        (int(stages[1]), int(stages[2])) == (2, 3)
+    block = RADIX_THREADS
+    while block <= MAX_RADIX_BLOCK:
+        warps = k7.sort_geometry(block)[0] // 32
+        for bits in (4, 8):
+            for kv in (False, True):
+                smem = k7.sort_smem(block, bits, kv)
+                assert smem == 4 * (block * ((2 if kv else 3) + kv)
+                                    + (1 << bits) * (2 * warps + 1)
+                                    + 32 + 8) <= SMEM_BYTES
+        block *= 2
+    assert k7.sort_smem(MAX_RADIX_BLOCK, 8, False) == \
+        k7.sort_smem(MAX_RADIX_BLOCK, 8, True) == 230_560
+    assert k7.sort_grid(2048, 132, 1) == 132
+    assert k7.sort_grid(100, 132, 1) == 100
+    assert k7.sort_grid(65536, 132, 0) == 132
+    assert k7.sort_grid(65536, 132, 7) == 924
+
+
+def _popc(x: np.ndarray) -> np.ndarray:
+    return np.array([bin(int(v)).count("1") for v in x])
+
+
+def emulate_block_sort(keys, vals, *, shift, block, bits, grid):
+    """K7 as csrc/radix.cu runs it, in numpy: `grid` resident thread blocks
+    walk the blocks p = b, b + grid, ...; warp w holds keys w 32 KPT +
+    32 e + l (slot e, lane l) and ranks them slot by slot: a slot whose 32
+    digits are equal takes every lane as a peer (tested first and after a
+    slot of one group only), else each lane ORs its bit into its digit's
+    match word and reads it back; the highest peer
+    advances the warp's count of the digit (the count before is the
+    group's base) and clears the word. Then the (digit, warp) table's
+    digit-major exclusive scan gives each run its start, the gaps give the
+    histogram, and key i lands at start + rank. Asserts that every match
+    word is zero after every slot and that every block writes each slot
+    once."""
+    kv = vals is not None
+    threads, kpt = k7.sort_geometry(block)
+    nw, radix = threads // 32, 1 << bits
+    nblocks = keys.size // block
+    out_k = np.empty_like(keys)
+    out_v = np.empty_like(vals) if kv else None
+    hist = np.zeros((nblocks, radix), np.int32)
+    lanes = np.arange(32)
+    lower = (np.uint64(1) << lanes.astype(np.uint64)) - np.uint64(1)
+    for b in range(grid):
+        tab = np.zeros((radix, nw), np.int64)  # zeroed once, then by p
+        match = np.zeros((nw, radix), np.uint64)
+        for p in range(b, nblocks, grid):
+            blk = keys[p * block:(p + 1) * block]
+            digit = ((blk >> np.uint32(shift)) & np.uint32(radix - 1)
+                     ).astype(np.int64)
+            rank = np.empty(block, np.int64)
+            for w in range(nw):
+                seg = digit[w * 32 * kpt:(w + 1) * 32 * kpt].reshape(kpt, 32)
+                tested = True  # first, or after a slot of one group
+                for e in range(kpt):
+                    d = seg[e]
+                    one = tested and (d == d[0]).all()
+                    if one:
+                        peers = np.full(32, 0xFFFFFFFF, np.uint64)
+                    else:
+                        for lane in lanes:
+                            match[w, d[lane]] |= np.uint64(1 << lane)
+                        peers = match[w, d]
+                    tested = bool((peers == 0xFFFFFFFF).all())
+                    top = np.array([int(x).bit_length() - 1 for x in peers])
+                    prior = tab[d, w].copy()
+                    leaders = lanes == top
+                    tab[d[leaders], w] += _popc(peers[leaders])
+                    if not one:
+                        match[w, d[leaders]] = 0
+                    assert not match.any()
+                    rank[w * 32 * kpt + 32 * e + lanes] = \
+                        prior + _popc(peers & lower)
+            flat = tab.reshape(-1)
+            start = (np.cumsum(flat) - flat).reshape(radix, nw)
+            hist[p] = tab.sum(axis=1)
+            pos = start[digit, np.arange(block) // (32 * kpt)] + rank
+            assert np.array_equal(np.sort(pos), np.arange(block))
+            out_k[p * block + pos] = blk
+            if kv:
+                out_v[p * block + pos] = vals[p * block:(p + 1) * block]
+            tab[:] = 0
+    return (out_k, out_v, hist) if kv else (out_k, hist)
+
+
+def _k7_keys(kind: str, n: int, shift: int, seed: int) -> np.ndarray:
+    keys = _keys(seed, n=n)
+    if kind == "one digit":  # every lane of every slot a peer
+        keys = (keys & ~np.uint32(0xFF << shift)) | np.uint32(0x2A << shift)
+    elif kind == "two digits":  # ~16 peers a lane: queued ORs
+        keys = (keys & ~np.uint32(0xFE << shift)) | np.uint32(0x2A << shift)
+    elif kind == "all equal":
+        keys = np.full(n, 0x12345978, np.uint32)
+    return keys
+
+
+@pytest.mark.parametrize("key_value", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "one digit", "two digits",
+                                  "all equal"])
+@pytest.mark.parametrize("block", [512, 2048])
+def test_block_sort_emulation_matches_plain_and_jax(block, kind, key_value):
+    """The warp-by-warp emulation of K7 at 4-bit digits, 5 blocks on a grid
+    of 2 (a block count no multiple of the grid), bitwise equal to the
+    plain version and to the Pallas block sort in interpret mode."""
+    shift, n = 4, 5 * block
+    keys = _k7_keys(kind, n, shift, seed=block + len(kind) + key_value)
+    vals = _vals(block + 3, n=n)
+    cfg = SortConfig(block=block, digit_bits=4)
+    got = emulate_block_sort(keys, vals if key_value else None, shift=shift,
+                             block=block, bits=4, grid=2)
+    plain = k7.block_sort_plain(torch.from_numpy(keys),
+                                torch.from_numpy(vals) if key_value
+                                else None, shift=shift, config=cfg,
+                                key_value=key_value)
+    jcfg = JaxConfig(block=block, flush_rows=4, interpret=True)
+    want = jax_block_sort(_tile(keys, 0xFFFFFFFF),
+                          _tile(vals, 0) if key_value else None,
+                          shift=shift, config=jcfg, key_value=key_value,
+                          interpret=True)
+    for g, p_, w in zip(got[:-1], plain[:-1], want[:-1]):
+        np.testing.assert_array_equal(g, p_.numpy())
+        np.testing.assert_array_equal(g, _flat(w))
+    np.testing.assert_array_equal(got[-1], plain[-1].numpy())
+    np.testing.assert_array_equal(got[-1], np.asarray(want[-1])[:, :16])
+
+
+@pytest.mark.parametrize("key_value", [False, True])
+@pytest.mark.parametrize("kind", ["uniform", "one digit", "two digits",
+                                  "all equal"])
+def test_block_sort_emulation_8bit_matches_plain(kind, key_value):
+    """The emulation at 8-bit digits (the main path's radix; the Pallas
+    kernel's histogram rows hold 128 lanes, so plain only), block 2048, 3
+    blocks on a grid of 2, at the top digit."""
+    shift, block, n = 24, 2048, 3 * 2048
+    keys = _k7_keys(kind, n, shift, seed=31 + len(kind))
+    vals = _vals(41, n=n)
+    cfg = SortConfig(block=block, digit_bits=8)
+    got = emulate_block_sort(keys, vals if key_value else None, shift=shift,
+                             block=block, bits=8, grid=2)
+    plain = k7.block_sort_plain(torch.from_numpy(keys),
+                                torch.from_numpy(vals) if key_value
+                                else None, shift=shift, config=cfg,
+                                key_value=key_value)
+    for g, p_ in zip(got, plain):
+        np.testing.assert_array_equal(g, p_.numpy())

@@ -30,26 +30,37 @@
 // the spine gives each block its own base per digit, and ranks come from
 // warp match masks.
 //
-// Stability is the whole LSD contract, so no rank comes from an atomic
-// counter, whose order changes from run to run. K7 ranks as CUB's
-// match-based block rank does. Warp w of a block owns a contiguous
-// segment of 32·KPT keys and holds them in registers, slot e of lane l
-// being key 32e + l of the segment, so (slot, lane) is input order. Per
-// slot, one ballot per digit bit groups the lanes holding one digit (the
-// peers __match_any_sync would give, for less); a key's rank
-// in the warp is the warp's running count of its digit (one entry of a
-// shared (digit, warp) table, which the walk leaves holding the warp's
-// count) plus its peers in lower lanes. One block-wide exclusive scan of
-// the table in digit-major order then gives each (digit, warp) run its
-// start in the sorted block, and the block's histogram.
+// Stability is the whole LSD contract, so no rank comes from a counter
+// that several warps advance, in an order that changes from run to run.
+// K7 ranks as CUB's onesweep does (BlockRadixRankMatchEarlyCounts,
+// WARP_MATCH_ATOMIC_OR). Warp w of a block owns a contiguous segment of
+// 32·KPT keys, slot e of lane l being key 32e + l of the segment, so
+// (slot, lane) is input order. Per slot, each lane ORs its bit into a
+// shared word of its digit (one word per digit for the warp) and reads it
+// back: the lanes of its digit, whatever the order of the ORs. The highest
+// of them adds the group's size to the warp's count of the digit (one
+// entry of a (digit, warp) table that only this warp touches, slot after
+// slot) with one atomic add that returns the count before it, and a
+// shuffle hands it on: a key's rank in the warp is that count plus its
+// peers in lower lanes. A slot whose 32 keys share one digit skips the
+// words (the ORs on one word queue). One block-wide exclusive scan of the
+// table in digit-major order then gives each (digit, warp) run its start
+// in the sorted block, and the block's histogram.
 //
 // What bounds them on an H100: K7 and K8 move every key (and value) once
 // in and once out of HBM and do a few integer operations per key, so both
-// are bound by bytes. K7 copies its block into shared memory with 16-byte
-// asynchronous copies (cp.async), keeps keys, values and ranks in
-// registers, scatters keys and values into shared memory in one pass and
-// writes the sorted block back with 16-byte stores: five barriers a block,
-// and shared memory for the block and the count table only. K8 takes each
+// are bound by bytes. K7's thread blocks stay resident, one an SM at the
+// default block (as many as fit), and walk the blocks; the bulk copy
+// engine (TMA) loads the keys of the next two blocks (one for key-value)
+// into spare shared-memory buffers while a block is ranked and stores the
+// sorted block from shared memory while the next is, so that HBM moves
+// while the SM ranks. The earlier design, one 16-warp block an SM that
+// loaded, ranked with 8 ballots a slot, scanned, scattered and stored in
+// turn, reached 35% of the byte bound for keys; the measurement that chose
+// this one is in PERF.md, section 6 (one NVIDIA H100 80GB HBM3, 700 W,
+// `utils/block_sort_probe.py`). What holds K7 back now is shared memory:
+// the match words, the count adds and the scatter each meet the bank
+// conflicts of 32 random digits a slot. K8 takes each
 // key's digit from the key itself and writes it to delta[digit] + its
 // index: one shared lookup a key and no search for its run (CUB's
 // onesweep downsweep does the same). Its loads are issued before the
@@ -65,8 +76,8 @@
 // of 8 blocks that share their column sums through distributed shared
 // memory, so that no torch op and no second launch is needed; with 8
 // rows a thread in flight on 8 SMs it takes about 18 us at 2048 rows,
-// and its time grows with the rows (0.3 ms at 65536). No TMA and no
-// decoupled look-back yet.
+// and its time grows with the rows (0.3 ms at 65536). No decoupled
+// look-back yet.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -77,7 +88,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;  // most threads of a K7 block: RADIX_THREADS
-constexpr int kVecKeys = 4;    // keys in one 16-byte vector
+constexpr int kVecKeys = 4;    // fewest keys a K7 thread holds: 16 bytes
 constexpr int kPlaceThreads = 256;  // K8 scans radix <= 256 digits
 constexpr int kPlaceTile = 512;     // keys of a K8 block: 2 a thread
 constexpr int kSpineCluster = 8;  // blocks of the spine's one cluster
@@ -114,9 +125,8 @@ __device__ __forceinline__ void block_exclusive_scan(int* a, int n,
   __syncthreads();
 }
 
-// Threads of a K7 block: one per 4 keys (one 16-byte vector) up to
-// kThreads, so 4 to 32 keys a thread. Must match `sort_geometry` in
-// ops/block_sort.py.
+// Threads of a K7 block: one per 4 keys (16 bytes) up to kThreads, so 4
+// to 32 keys a thread. Must match `sort_geometry` in ops/block_sort.py.
 __host__ __device__ constexpr int sort_threads(int block) {
   return block / kVecKeys < kThreads ? block / kVecKeys : kThreads;
 }
@@ -126,25 +136,106 @@ __host__ __device__ constexpr int sort_threads(int block) {
 // in 32 different banks (at a stride of 16 they shared two).
 __host__ __device__ constexpr int table_stride(int warps) { return warps + 1; }
 
-// Keys (and values) of the block, the (digit, warp) count table, and 32
-// ints of scan scratch.
+// Key buffers of a K7 block: the block it sorts and the next two (keys) or
+// the next one (key-value, whose values take the third buffer's room).
+// Must match `sort_stages` in ops/block_sort.py.
+__host__ __device__ constexpr int sort_stages(bool kv) { return kv ? 2 : 3; }
+
+// The key buffers, one of values, the (digit, warp) count table, 32 ints
+// of scan scratch, the warps' match words (one per digit) and a load
+// barrier per key buffer (8 words). Must match `sort_smem` in
+// ops/block_sort.py.
 constexpr size_t sort_smem(int block, int bits, bool kv) {
   return size_t(4) *
-         (size_t(block) * (kv ? 2 : 1) +
-          (size_t(1) << bits) * table_stride(sort_threads(block) / 32) + 32);
+         (size_t(block) * (sort_stages(kv) + (kv ? 1 : 0)) +
+          (size_t(1) << bits) * (table_stride(sort_threads(block) / 32) +
+                                 sort_threads(block) / 32) +
+          32 + 8);
 }
 
-__device__ __forceinline__ void copy16_async(uint32_t* dst,
-                                             const uint32_t* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
+// Thread blocks of a K7 launch: as many as the card holds at once (`sms`
+// multiprocessors, `resident` blocks each), and no more than there are
+// blocks to sort. Must match `sort_grid` in ops/block_sort.py.
+__host__ __device__ constexpr long long sort_grid(long long nblocks, int sms,
+                                                  int resident) {
+  return nblocks < (long long)sms * (resident > 1 ? resident : 1)
+             ? nblocks
+             : (long long)sms * (resident > 1 ? resident : 1);
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// An mbarrier that one arrival (with its transaction bytes) completes.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar))
                : "memory");
 }
 
-__device__ __forceinline__ void copies_wait() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+// The bulk copy engine (TMA) copies `bytes` at src (global) to dst
+// (shared) in the background and completes the transaction on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t* dst, const uint32_t* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// Waits for the phase of `bar` of the given parity to complete.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, "
+        "[%1], %2;\n selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// The bulk copy engine writes `bytes` of shared memory at src to global
+// memory at dst in the background, as part of this thread's open group,
+// with the lines marked to leave L2 last: K8 reads them next, and without
+// the mark it ran 1.5-2.7% slower after this kernel than after the one
+// before it (PERF.md, section 6).
+__device__ __forceinline__ void bulk_store(uint32_t* dst, const uint32_t* src,
+                                           int bytes) {
+  uint64_t policy;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;\n"
+               : "=l"(policy));
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group.L2::cache_hint [%0], "
+      "[%1], %2, %3;\n" ::"l"(dst),
+      "r"(smem_addr(src)), "r"(bytes), "l"(policy)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores are done.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to the bulk copies.
+__device__ __forceinline__ void fence_to_bulk() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // In-place exclusive scan of the (digit, warp) table in digit-major order
@@ -195,115 +286,177 @@ __device__ __forceinline__ void table_exclusive_scan(int* tab, int* wsum) {
   }
 }
 
-// The lanes of the warp whose digit equals this lane's d < 2^BITS: one
-// ballot per digit bit, as CUB's MatchAny builds it, in place of
-// __match_any_sync (measured slower on the H100).
-template <int BITS>
-__device__ __forceinline__ unsigned digit_peers(uint32_t d) {
+// Rank of each of a thread's KPT keys, key(e) for slot e, among its
+// warp's keys of the same digit, in input order: the warp's count of the
+// digit so far (col[d * ts], an entry of the (digit, warp) table that no
+// other warp touches) plus the key's peers in lower lanes. The peers come
+// from `match`, one word per digit for the warp: each lane ORs its bit into
+// its digit's word and reads the word back (OR commutes, so the order of
+// the ORs does not matter). Lanes of one digit meet on one word and their
+// ORs queue, so a slot whose 32 keys share one digit (the top digits of
+// small keys) skips the words: every lane is a peer. That test (a shuffle
+// and a vote) runs only after a slot that was one group, or first, so
+// that mixed digits do not pay for it; a run of one digit that starts
+// later pays the queued ORs once, then takes the test. The highest peer
+// advances the count by the group's size with one atomic add, which
+// returns the count before it, and clears the word; a shuffle hands the
+// count to the group. A warp barrier closes each slot, so each count
+// advances slot by slot in input order on every run (the rank of CUB's
+// onesweep, WARP_MATCH_ATOMIC_OR). Ranks are < 32 KPT: two a register.
+template <int BITS, int KPT, class Key>
+__device__ __forceinline__ void rank_keys(Key key, uint32_t (&rank2)[KPT / 2],
+                                          int* col, int ts, unsigned* match,
+                                          int shift, int lane) {
+  constexpr uint32_t kMask = (1u << BITS) - 1;
+  const unsigned lower = (1u << lane) - 1u;
+  volatile unsigned* vm = match;
   unsigned peers = 0xffffffffu;
 #pragma unroll
-  for (int b = 0; b < BITS; ++b) {
-    const bool one = (d >> b) & 1u;
-    const unsigned ones = __ballot_sync(0xffffffffu, one);
-    peers &= one ? ones : ~ones;
+  for (int e = 0; e < KPT; ++e) {
+    const uint32_t d = (key(e) >> shift) & kMask;
+    const bool one = peers == 0xffffffffu &&
+                     __all_sync(0xffffffffu,
+                                d == __shfl_sync(0xffffffffu, d, 0));
+    peers = 0xffffffffu;
+    if (!one) {
+      atomicOr(match + d, 1u << lane);
+      __syncwarp();
+      peers = vm[d];
+    }
+    const int top = 31 - __clz(peers);
+    int prior = 0;
+    if (lane == top) prior = atomicAdd(col + d * ts, __popc(peers));
+    prior = __shfl_sync(0xffffffffu, prior, top);  // every lane read vm[d]
+    if (lane == top && !one) vm[d] = 0;
+    __syncwarp();
+    const uint32_t r = uint32_t(prior + __popc(peers & lower));
+    rank2[e / 2] = e & 1 ? rank2[e / 2] | r << 16 : r;
   }
-  return peers;
 }
 
-// K7: one block per `block` = blockDim.x * KPT keys. Writes the block
-// stably sorted by the digit at `shift` to out_k (and the values, moved
-// alike, to out_v), and its histogram to hist[blockIdx.x][0, 2^BITS).
+// K7: thread blocks that stay resident (no more than the card holds at
+// once, `sort_grid`) walk the `block`-key blocks p = blockIdx.x,
+// blockIdx.x + gridDim.x, ... < nblocks, blockDim.x * KPT keys each.
+// Writes block p stably sorted by the digit at `shift` to out_k (and the
+// values, moved alike, to out_v), and its histogram to hist[p][0, 2^BITS).
+// The bulk copy engine brings the keys of the next blocks into spare
+// buffers while block p is ranked, and writes block p out of shared memory
+// while the next one is; block p's values come into registers by loads
+// issued before its rank. The key-value kernel ranks from the keys in
+// shared memory and takes them into registers only for the scatter, so
+// that keys, values and ranks (96 words a thread at 32 keys) are never all
+// held through the rank: at 128 registers a thread they spilled.
 template <bool KV, int KPT, int BITS>
 __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
     block_sort_kernel(const uint32_t* __restrict__ keys,
                       const uint32_t* __restrict__ vals,
                       uint32_t* __restrict__ out_k,
                       uint32_t* __restrict__ out_v, int* __restrict__ hist,
-                      int shift) {
-  constexpr int kRadix = 1 << BITS;
+                      long long nblocks, int shift) {
+  constexpr int kRadix = 1 << BITS, NS = sort_stages(KV);
   constexpr uint32_t kMask = kRadix - 1;
   extern __shared__ uint4 tile4[];
   const int nthreads = blockDim.x, nw = nthreads >> 5;
   const int ts = table_stride(nw);
   const int block = nthreads * KPT;
-  uint32_t* sk = reinterpret_cast<uint32_t*>(tile4);  // [block] keys
-  uint32_t* sv = sk + block;                           // [block] values
-  int* tab = reinterpret_cast<int*>(sk + (KV ? 2 : 1) * block);  // [radix][ts]
-  int* wsum = tab + kRadix * ts;                                 // [32]
-  const uint64_t base = uint64_t(blockIdx.x) * uint64_t(block);
+  uint32_t* sk = reinterpret_cast<uint32_t*>(tile4);  // [NS][block] keys
+  uint32_t* sv = sk + NS * block;                      // [block] values
+  int* tab = reinterpret_cast<int*>(sv + (KV ? block : 0));  // [radix][ts]
+  int* wsum = tab + kRadix * ts;                             // [32]
+  unsigned* match = reinterpret_cast<unsigned*>(wsum + 32);  // [nw][radix]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(match + kRadix * nw);  // [NS]
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  // slot e of lane l of warp w holds key seg + 32 e of the block, so
+  // (slot, lane) is input order
+  const int seg = w * 32 * KPT + lane;
 
-  // The block into shared memory in input order by 16-byte asynchronous
-  // copies; the count table is zeroed while they fly.
-#pragma unroll
-  for (int q = 0; q < KPT / kVecKeys; ++q) {
-    const int i = (q * nthreads + t) * kVecKeys;
-    copy16_async(sk + i, keys + base + i);
-    if constexpr (KV) copy16_async(sv + i, vals + base + i);
+  if (t == 0) {
+    for (int b = 0; b < NS; ++b) bar_init(bars + b);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   for (int i = t; i < kRadix * ts; i += nthreads) tab[i] = 0;
-  copies_wait();
+  for (int i = t; i < kRadix * nw; i += nthreads) match[i] = 0;
   __syncthreads();
+  // Block p's keys into key buffer b.
+  auto stage = [&](int b, long long p) {
+    if (t == 0 && p < nblocks)
+      bulk_load(sk + b * block, keys + uint64_t(p) * uint64_t(block),
+                4 * block, bars + b);
+  };
+  for (int b = 0; b < NS - 1; ++b) stage(b, blockIdx.x + b * gridDim.x);
 
-  // Warp w's segment into registers, slot e of lane l holding key
-  // 32 KPT w + 32 e + l: (slot, lane) is input order.
-  const int seg = w * 32 * KPT + lane;
-  uint32_t k[KPT];
-  uint32_t v[KV ? KPT : 1];
-  uint32_t rank2[KPT / 2];  // two ranks (< 32 KPT) a register, 16 bits each
+  unsigned parity = 0;  // bit b: the parity of key buffer b's next load
+  int buf = 0;          // block p's key buffer
+  for (long long p = blockIdx.x; p < nblocks;
+       p += gridDim.x, buf = buf + 1 == NS ? 0 : buf + 1) {
+    const uint64_t base = uint64_t(p) * uint64_t(block);
+    uint32_t* cur = sk + buf * block;
+    uint32_t v[KV ? KPT : 1];
+    if constexpr (KV) {
 #pragma unroll
-  for (int e = 0; e < KPT; ++e) {
-    k[e] = sk[seg + 32 * e];
-    if constexpr (KV) v[e] = sv[seg + 32 * e];
-  }
+      for (int e = 0; e < KPT; ++e) v[e] = __ldcs(vals + base + seg + 32 * e);
+    }
+    bar_wait(bars + buf, parity >> buf & 1u);  // block p's keys are in
+    parity ^= 1u << buf;
+    __syncthreads();  // and the table is zero again
+    uint32_t k[KPT];
+    if constexpr (!KV) {
+#pragma unroll
+      for (int e = 0; e < KPT; ++e) k[e] = cur[seg + 32 * e];
+    }
 
-  // Rank of each key among the warp's keys of its digit, in input order:
-  // the warp's running count (its table entry, which every peer reads
-  // and the lowest peer advances) plus the peers in lower lanes.
-  const unsigned lower = (1u << lane) - 1u;
-  volatile int* col = tab + w;  // col[d * ts]: warp w's count of digit d
-#pragma unroll
-  for (int e = 0; e < KPT; ++e) {
-    const uint32_t d = (k[e] >> shift) & kMask;
-    const unsigned peers = digit_peers<BITS>(d);
-    const int prior = col[d * ts];
-    const int below = __popc(peers & lower);
-    __syncwarp();
-    if (below == 0) col[d * ts] = prior + __popc(peers);
-    __syncwarp();
-    const uint32_t r = uint32_t(prior + below);
-    rank2[e / 2] = e & 1 ? rank2[e / 2] | r << 16 : r;
-  }
-  __syncthreads();
-
-  // tab[d][w] becomes the start of warp w's keys of digit d in the sorted
-  // block; digit d's count is the gap to digit d+1's start.
-  table_exclusive_scan<BITS>(tab, wsum);
-  __syncthreads();
-  for (int d = t; d < kRadix; d += nthreads) {
-    const int end = d + 1 < kRadix ? tab[(d + 1) * ts] : block;
-    hist[uint64_t(blockIdx.x) * kRadix + d] = end - tab[d * ts];
-  }
-
-  // Keys and values to their sorted slots in one pass (every thread read
-  // its segment before the barriers above), then out as 16-byte vectors.
-#pragma unroll
-  for (int e = 0; e < KPT; ++e) {
-    const int pos = tab[((k[e] >> shift) & kMask) * ts + w] +
-                    int(rank2[e / 2] >> (16 * (e & 1)) & 0xFFFFu);
-    sk[pos] = k[e];
-    if constexpr (KV) sv[pos] = v[e];
-  }
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < KPT / kVecKeys; ++q) {
-    const int i = (q * nthreads + t) * kVecKeys;
-    *reinterpret_cast<uint4*>(out_k + base + i) =
-        *reinterpret_cast<const uint4*>(sk + i);
+    uint32_t rank2[KPT / 2];
     if constexpr (KV)
-      *reinterpret_cast<uint4*>(out_v + base + i) =
-          *reinterpret_cast<const uint4*>(sv + i);
+      rank_keys<BITS, KPT>([&](int e) { return cur[seg + 32 * e]; }, rank2,
+                           tab + w, ts, match + w * kRadix, shift, lane);
+    else
+      rank_keys<BITS, KPT>([&](int e) { return k[e]; }, rank2, tab + w, ts,
+                           match + w * kRadix, shift, lane);
+    // Once the bulk stores of the block before have read their buffer (and
+    // the values), the keys of block p + (NS - 1) gridDim.x go there.
+    if (t == 0) bulk_wait_read();
+    __syncthreads();
+    stage(buf == 0 ? NS - 1 : buf - 1, p + (NS - 1) * gridDim.x);
+    // phase rank ends; probe sink: rank2[0] + rank2[KPT / 2 - 1]; continue
+
+    // tab[d][w] becomes the start of warp w's keys of digit d in the
+    // sorted block; digit d's count is the gap to digit d+1's start.
+    table_exclusive_scan<BITS>(tab, wsum);
+    __syncthreads();
+    for (int d = t; d < kRadix; d += nthreads) {
+      const int end = d + 1 < kRadix ? tab[(d + 1) * ts] : block;
+      hist[uint64_t(p) * kRadix + d] = end - tab[d * ts];
+    }
+    if constexpr (KV) {
+#pragma unroll
+      for (int e = 0; e < KPT; ++e) k[e] = cur[seg + 32 * e];
+      __syncthreads();  // every key read before the scatter overwrites them
+    }
+    // phase scan ends; probe sink: tab[t]; continue
+
+    // Keys and values to their sorted slots in one pass (every thread read
+    // its keys from `cur` before a barrier above); the table is zeroed for
+    // the next block once every thread has read its starts.
+#pragma unroll
+    for (int e = 0; e < KPT; ++e) {
+      const int pos = tab[((k[e] >> shift) & kMask) * ts + w] +
+                      int(rank2[e / 2] >> (16 * (e & 1)) & 0xFFFFu);
+      cur[pos] = k[e];
+      if constexpr (KV) sv[pos] = v[e];
+    }
+    fence_to_bulk();
+    __syncthreads();
+    for (int i = t; i < kRadix * ts; i += nthreads) tab[i] = 0;
+    // phase scatter ends; probe sink: cur[t]; continue
+
+    // Out by the bulk copy engine while the next block ranks.
+    if (t == 0) {
+      bulk_store(out_k + base, cur, 4 * block);
+      if constexpr (KV) bulk_store(out_v + base, sv, 4 * block);
+      bulk_commit();
+    }
   }
+  if (t == 0) bulk_wait();  // shared memory lives until the stores read it
 }
 
 // The spine: one cluster of CL blocks over the (nblocks, radix) histogram.
@@ -465,14 +618,22 @@ struct SortArgs {
 
 template <bool KV, int KPT, int BITS>
 int launch_match(const SortArgs& a) {
+  const auto kernel = block_sort_kernel<KV, KPT, BITS>;
+  const int threads = a.block / KPT;
   const size_t smem = sort_smem(a.block, BITS, KV);
+  int dev = 0, sms = 0, resident = 0;
   cudaError_t e = cudaFuncSetAttribute(
-      block_sort_kernel<KV, KPT, BITS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (e == cudaSuccess) e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&resident, kernel,
+                                                      threads, smem);
   if (e != cudaSuccess) return int(e);
-  block_sort_kernel<KV, KPT, BITS>
-      <<<unsigned(a.nblocks), a.block / KPT, smem, a.st>>>(
-          a.keys, a.vals, a.out_k, a.out_v, a.hist, a.shift);
+  kernel<<<unsigned(sort_grid(a.nblocks, sms, resident)), threads, smem,
+           a.st>>>(a.keys, a.vals, a.out_k, a.out_v, a.hist, a.nblocks,
+                   a.shift);
   return int(cudaGetLastError());
 }
 
@@ -518,8 +679,7 @@ int launch_place(const void* y, const void* yv, const void* hist,
 // Each call launches one kernel on `stream` and returns cudaGetLastError()
 // (cudaErrorInvalidValue for a geometry the kernels do not take). `kv` != 0
 // moves the values too; otherwise their pointers are not read. K7's
-// buffers must be 16-byte aligned (its copies and stores are 16-byte
-// vectors).
+// buffers must be 16-byte aligned (the bulk copy engine moves its blocks).
 extern "C" {
 
 int vrs_block_sort(int kv, const void* keys, const void* vals, void* out_k,

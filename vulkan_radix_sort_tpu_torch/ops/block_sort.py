@@ -11,8 +11,10 @@ Layout differs from the JAX package's only where the TPU forced it: keys
 and values are flat uint32 tensors, not (rows, 128) tiles, and the
 histogram is `(nblocks, radix)` int32, not `(nblocks, 128)` lane-padded
 rows. The kernel (`block_sort_kernel` in `csrc/radix.cu`) says what bounds
-it on an H100 and how it keeps the ranks stable. It copies and stores the
-block as 16-byte vectors, so its buffers must be 16-byte aligned
+it on an H100 and how it keeps the ranks stable: thread blocks that stay
+resident (`sort_grid`) walk the blocks, and the bulk copy engine loads
+the next blocks' keys into spare buffers (`sort_stages`, `sort_smem`)
+and stores each sorted block, so its buffers must be 16-byte aligned
 (`check_aligned`).
 
 `block_sort` runs the plain version when the keys lie on the CPU, and
@@ -33,7 +35,7 @@ from .bitops import check_aligned, widen_u32
 # Launches of the CUDA kernel since the last reset.
 launches = {"block_sort": 0}
 
-VECTOR_KEYS = 4  # keys in one 16-byte vector
+VECTOR_KEYS = 4  # fewest keys a K7 thread holds: 16 bytes
 
 
 def reset_launches() -> None:
@@ -41,10 +43,35 @@ def reset_launches() -> None:
 
 
 def sort_geometry(block: int) -> tuple[int, int]:
-    """(threads, keys per thread) of a K7 block: one thread per 16-byte
-    vector up to RADIX_THREADS threads (sort_threads in csrc/radix.cu)."""
+    """(threads, keys per thread) of a K7 block: one thread per 4 keys up
+    to RADIX_THREADS threads (sort_threads in csrc/radix.cu)."""
     threads = min(block // VECTOR_KEYS, RADIX_THREADS)
     return threads, block // threads
+
+
+def sort_stages(key_value: bool) -> int:
+    """Key buffers of a K7 block (sort_stages in csrc/radix.cu): the block
+    it sorts and the next two, or the next one for key-value, whose values
+    take the third buffer's room."""
+    return 2 if key_value else 3
+
+
+def sort_smem(block: int, bits: int, key_value: bool) -> int:
+    """Bytes of shared memory of a K7 block (sort_smem in csrc/radix.cu):
+    the key buffers, a value buffer, the (digit, warp) count table with an
+    odd row stride, 32 ints of scan scratch, a match word per digit and
+    warp, and 8 words for the key buffers' load barriers."""
+    warps = sort_geometry(block)[0] // 32
+    return 4 * (block * (sort_stages(key_value) + key_value)
+                + (1 << bits) * (2 * warps + 1) + 32 + 8)
+
+
+def sort_grid(nblocks: int, sms: int, resident: int) -> int:
+    """Thread blocks of a K7 launch (sort_grid in csrc/radix.cu): as many
+    as the card holds at once, `sms` multiprocessors with `resident` blocks
+    each, and no more than there are blocks; each walks blocks
+    blockIdx.x, blockIdx.x + grid, ..."""
+    return min(nblocks, sms * max(resident, 1))
 
 
 def _check(keys, values, shift: int, config: SortConfig, key_value: bool):
