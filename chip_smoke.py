@@ -33,11 +33,11 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      oracle computed once for all four; each sort's launches, read from
      a launch recorder, must be those of its kind's backend (radix: K7,
      the spine and K8 exactly num_passes times; network: network kernels
-     only; reference: none); the kernels' launch counters are zeroed just
-     before each backend's run and read just after, and every kernel of
-     that backend must have launched; then the 64-bit path (uint64, int64
-     and float64 keys) through the same entry points at 2^25, on the
-     network with its launches counted per carry (chunk, fused, cross,
+     only; reference: none); each backend's run has a launch recorder of
+     its own, and every kernel of that backend must have launched; then
+     the 64-bit path (uint64, int64 and float64 keys) through the same
+     entry points at 2^25, on the network with its launches counted per
+     carry (chunk, fused, cross,
      local and the gate must launch in both w3 and w4_big), and through
      'auto' (the '[launches] auto' line: the kernels of every backend
      'auto' picked, 32- and 64-bit, and no other);
@@ -60,8 +60,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      2^25 keys each (2^27 in all) sorts through sort_sharded /
      sort_pairs_sharded (keys, stable kv uniform and few-distinct, ragged
      n with count=, constant keys that must take the fallback), each
-     bitwise equal to a numpy oracle computed once here; each rank zeroes
-     its launch counters just before each sort and reads them just after:
+     bitwise equal to a numpy oracle computed once here; each rank records
+     the launches of each sort in a launch recorder of its own:
      the merge runs must launch cross and the gated local kernel, the
      fallback none of the latter. Wall time per phase of the world;
  7b. overlap, the 2-D tier and the reports: a second world of 4 gloo
@@ -84,9 +84,9 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      and K6 per launch against the ungated local pass.
   9. stages: Sorter.sort_timed / sort_key_value_timed at 2^25 (network
      keys, stable and non-stable kv, uint64 keys; radix keys): each
-     network sort's recorded launches must equal one sort's launch
-     counters, and its stage sum must lie within [0.8, 1.05] of its
-     total;
+     network sort's recorded stage launches must equal the launches
+     recorded in one sort, and its stage sum must lie within
+     [0.8, 1.05] of its total;
  10. adaptive: SortConfig(adaptive=True) network sorts at 2^25 on
      sorted, reverse, constant and uniform keys and stable kv on sorted
      and reverse keys, each against numpy; the fast paths must launch no
@@ -256,13 +256,10 @@ def sync(device) -> None:
         torch.cuda.synchronize()
 
 
-def reset_launches() -> None:
-    for mod in (bk, k7, k8):
-        mod.reset_launches()
-
-
-def launch_counts() -> dict[str, int]:
-    return {**bk.launches, **k7.launches, **k8.launches}
+# Every launch counter name: the network kernels' (`bk.counters`), K7's,
+# the spine's and K8's.
+LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
+                   "block_sort", "spine", "place")
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -290,7 +287,7 @@ def build() -> None:
     registers to local memory, or if the report does not name every
     instantiation."""
     t0 = time.perf_counter()
-    path, report = _build.build()
+    path, report, _ = _build.build()
     log(f"[build] {path.name} {time.perf_counter() - t0:.1f} s")
     name, spills, names = None, [], {}
     for line in report.splitlines():
@@ -585,12 +582,13 @@ def _pairs_oracle(k: np.ndarray, v: np.ndarray):
 
 
 def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
-    """Launches by counter name in a LaunchTimer's records (on the CPU,
-    the plain versions that stand in for the kernels)."""
-    got = {}
+    """Launches by counter name in a LaunchTimer's records, every counter
+    named: on a card the kernel launches, on the CPU the plain versions
+    that stand in for them."""
+    got = dict.fromkeys(LAUNCH_COUNTERS, 0)
     for rec in timer.records:
         for k in rec["names"]:
-            got[k] = got.get(k, 0) + 1
+            got[k] += 1
     return got
 
 
@@ -890,26 +888,19 @@ W64_KERNELS = ("chunk", "fused", "cross", "local", "gate")
 
 
 def _path_launches64(oracles) -> dict:
-    """Drive the 64-bit path with the counters zeroed just before and read
-    just after; each of K1-K5 must have launched in both w3 and w4_big.
-    Returns the launches per carry and kernel: the launch recorder's
-    records attributed to their carries, which must add up to the
-    counters."""
-    reset_launches()
+    """Drive the 64-bit path inside a launch recorder; each of K1-K5 must
+    have launched in both w3 and w4_big. Returns the launches per carry
+    and kernel: the recorder's records attributed to their carries."""
     with timing.LaunchTimer() as timer:
         main_path64(config=NETWORK, oracles=oracles)
         torch.cuda.synchronize()
     counts = {}
     for rec in timer.records:
         carry = rec["mode"].name if "mode" in rec else "radix"
-        c = counts.setdefault(carry, dict.fromkeys(launch_counts(), 0))
+        c = counts.setdefault(carry, dict.fromkeys(LAUNCH_COUNTERS, 0))
         for k in rec["names"]:
             c[k] += 1
     log("[launches] w64", json.dumps(counts))
-    summed = {k: sum(c[k] for c in counts.values()) for k in launch_counts()}
-    if summed != launch_counts():
-        raise AssertionError(f"carries {summed} against counters "
-                             f"{launch_counts()}")
     missing = [(c, k) for c in W64_CARRIES for k in W64_KERNELS
                if counts.get(c, {}).get(k, 0) == 0]
     if missing:
@@ -1144,14 +1135,14 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
     for fn in sorts.values():  # warm
         fn()
     torch.cuda.synchronize()
-    per_sort = {}  # launches of one sort, from the kernels' counters
+    per_sort = {}  # launches of one sort, from a recorder of its own
     with timing.LaunchTimer() as timer:
         for _ in range(TIMED_RUNS):
             for tag, fn in sorts.items():
                 timer.tag = tag
-                reset_launches()
-                fn()
-                per_sort[tag] = launch_counts()
+                with timing.LaunchTimer() as one:
+                    fn()
+                per_sort[tag] = _recorded(one)
     torch.cuda.synchronize()
 
     def acc():
@@ -1349,9 +1340,9 @@ def dist_cases(n: int) -> dict:
 def dist_rank(rank: int, world: int, tmp: str, n: int, device: str,
               use_kernels) -> None:
     """One rank: its shard of each case through the public entry points,
-    the launch counters zeroed just before each sort and read just after;
-    outputs, counts and phase times go to `tmp`. Rank 0 also keeps the slot
-    buffers the merge of each CAPTURE case received."""
+    each sort inside a launch recorder of its own; outputs, counts and
+    phase times go to `tmp`. Rank 0 also keeps the slot buffers the merge
+    of each CAPTURE case received."""
     dev = torch.device(device)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -1375,17 +1366,18 @@ def dist_rank(rank: int, world: int, tmp: str, n: int, device: str,
         captured.clear()
         phases = {}
         sync(dev)
-        reset_launches()
         t = time.perf_counter()
-        if kv:
-            gk, gv = td.sort_pairs_sharded(dk, dv, count=count,
-                                           use_kernels=use_kernels,
-                                           phase_times=phases)
-        else:
-            gk = td.sort_sharded(dk, count=count, use_kernels=use_kernels,
-                                 phase_times=phases)
-        sync(dev)
-        report[name] = dict(launches=launch_counts(), phases=phases,
+        with timing.LaunchTimer() as timer:
+            if kv:
+                gk, gv = td.sort_pairs_sharded(dk, dv, count=count,
+                                               use_kernels=use_kernels,
+                                               phase_times=phases)
+            else:
+                gk = td.sort_sharded(dk, count=count,
+                                     use_kernels=use_kernels,
+                                     phase_times=phases)
+            sync(dev)
+        report[name] = dict(launches=_recorded(timer), phases=phases,
                             wall_s=time.perf_counter() - t)
         np.save(f"{tmp}/out{i}_{rank}_k.npy", gk.cpu().numpy())
         if kv:
@@ -1415,7 +1407,7 @@ def dist_phase(n_rank: int = N_RANK, world: int = WORLD, device="cuda:0",
     data = {d: datagen.generate_keys(n, seed=SEED + 10, distribution=d)
             for d in ("uniform", "few", "constant")}
     vals = datagen.generate_values(n, seed=SEED + 11)
-    total = dict.fromkeys(launch_counts(), 0)
+    total = dict.fromkeys(LAUNCH_COUNTERS, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for d, a in data.items():
             np.save(f"{tmp}/keys_{d}.npy", a)
@@ -1540,8 +1532,8 @@ def skewed_keys(n: int, world: int, seed: int = SEED + 12) -> np.ndarray:
 def dist2_rank(rank: int, world: int, tmp: str, n: int, device: str,
                use_kernels, iters: int) -> None:
     """One rank of phase 7b: each case of `dist2_cases` through the public
-    entry points with the launch counters zeroed just before the sort and
-    read just after; then the three reports. Outputs and reports go to
+    entry points, each sort inside a launch recorder of its own; then the
+    three reports. Outputs and reports go to
     `tmp`."""
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -1563,7 +1555,6 @@ def dist2_rank(rank: int, world: int, tmp: str, n: int, device: str,
                   dcn_slack=case.get("dcn_slack"), phase_times={})
         rep = {}
         sync(dev)
-        reset_launches()
         t = time.perf_counter()
         try:
             with timing.LaunchTimer() as timer:
@@ -1578,13 +1569,8 @@ def dist2_rank(rank: int, world: int, tmp: str, n: int, device: str,
                 np.save(f"{tmp}/out{i}_{rank}_v.npy", gv.cpu().numpy())
         except ValueError as e:
             rep["error"] = str(e)
-        counts = launch_counts()
-        if dev.type == "cpu":  # a rehearsal: plain versions count nothing
-            counts = dict.fromkeys(counts, 0)
-            for rec in timer.records:
-                for k in rec["names"]:
-                    counts[k] += 1
-        report[name] = dict(rep, launches=counts, phases=kw["phase_times"])
+        report[name] = dict(rep, launches=_recorded(timer),
+                            phases=kw["phase_times"])
     kw = dict(use_kernels=use_kernels, iters=iters, device=device)
     reports = {"phase_report": scaling.phase_report(None, n, **kw),
                "phase_report overlap": scaling.phase_report(
@@ -1650,10 +1636,10 @@ def dist2_phase(n_rank: int = N_RANK, world: int = WORLD, device="cuda:0",
             for d in ("uniform", "few", "constant")}
     data["skew"] = skewed_keys(n, world)
     data["vals"] = datagen.generate_values(n, seed=SEED + 11)
-    reset_launches()
-    bitonic.sort_u32(to_dev(data["uniform"][:n_rank], device))
-    sync(device)
-    per_sort = launch_counts()
+    with timing.LaunchTimer() as timer:
+        bitonic.sort_u32(to_dev(data["uniform"][:n_rank], device))
+        sync(device)
+    per_sort = _recorded(timer)
     halves = _halves_launches(n_rank)
     with tempfile.TemporaryDirectory() as tmp:
         for d, a in data.items():
@@ -1863,9 +1849,9 @@ NET_LAUNCHES = ("chunk", "fused", "cross", "local")  # K5 counts no launch
 def stages_phase(n: int = N) -> dict:
     """Sorter.sort_timed / sort_key_value_timed on the network (keys,
     stable and non-stable kv, uint64 keys) and the radix backend (keys).
-    Each network sort's recorded launches must equal one sort's launch
-    counters, and its three stage sums must lie within [0.8, 1.05] of its
-    total."""
+    Each network sort's recorded stage launches must equal the launches
+    recorded in one sort, and its three stage sums must lie within
+    [0.8, 1.05] of its total."""
     keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     k64 = to_dev(np.random.default_rng(SEED + 32).integers(
@@ -1888,10 +1874,10 @@ def stages_phase(n: int = N) -> dict:
     out = {}
     for name, (timed, once) in cases.items():
         t = timed(STAGE_ITERS)
-        reset_launches()
-        once()
-        torch.cuda.synchronize()
-        counts = launch_counts()
+        with timing.LaunchTimer() as timer:
+            once()
+            torch.cuda.synchronize()
+        counts = _recorded(timer)
         stages = t.upsweep_ns + t.spine_ns + t.downsweep_ns
         row = {"upsweep_ms": t.upsweep_ns / 1e6, "spine_ms": t.spine_ns / 1e6,
                "downsweep_ms": t.downsweep_ns / 1e6,
@@ -1922,8 +1908,8 @@ def stages_phase(n: int = N) -> dict:
 
 # -- phase 10: adaptive fast paths ---------------------------------------------
 
-def _net_launches() -> int:
-    return sum(launch_counts()[k] for k in NET_LAUNCHES)
+def _net_launches(timer: timing.LaunchTimer) -> int:
+    return sum(_recorded(timer)[k] for k in NET_LAUNCHES)
 
 
 def adaptive_phase(n: int = N, card: str = "") -> dict:
@@ -1940,10 +1926,10 @@ def adaptive_phase(n: int = N, card: str = "") -> dict:
     for dist in ("sorted", "reverse", "constant", "uniform"):
         k_np = datagen.generate_keys(n, seed=SEED + 40, distribution=dist)
         k = to_dev(k_np, "cuda")
-        reset_launches()
-        got = s.sort(k)
-        torch.cuda.synchronize()
-        launched = _net_launches()
+        with timing.LaunchTimer() as timer:
+            got = s.sort(k)
+            torch.cuda.synchronize()
+        launched = _net_launches(timer)
         _expect(got, np.sort(k_np), f"adaptive keys {dist}")
         fast = dist != "uniform"
         if (launched == 0) != fast:
@@ -1958,10 +1944,10 @@ def adaptive_phase(n: int = N, card: str = "") -> dict:
     dup = np.sort(datagen.generate_keys(n, seed=SEED + 42) >> np.uint32(20))
     for dist, k_np in (("sorted", dup), ("reverse", dup[::-1].copy())):
         k, v = to_dev(k_np, "cuda"), to_dev(vals, "cuda")
-        reset_launches()
-        gk, gv = s.sort_key_value(k, v)
-        torch.cuda.synchronize()
-        launched = _net_launches()
+        with timing.LaunchTimer() as timer:
+            gk, gv = s.sort_key_value(k, v)
+            torch.cuda.synchronize()
+        launched = _net_launches(timer)
         wk, wv = _stable_oracle(k_np, vals)
         _expect(gk, wk, f"adaptive stable kv {dist}, keys")
         _expect(gv, wv, f"adaptive stable kv {dist}, values")
@@ -1973,12 +1959,12 @@ def adaptive_phase(n: int = N, card: str = "") -> dict:
         log(f"[adaptive] stable kv {dist}: launches={launched} ms={ms:.4f}")
     # time_fn calls the sort on the same unsorted keys each time: every
     # call (warm-up and timed) must run the engine
-    reset_launches()
     warmup, iters, repeats = 1, 3, 2
-    time_fn(lambda: s.sort(uniform), iters=iters, repeats=repeats,
-            warmup=warmup)
+    with timing.LaunchTimer() as timer:
+        time_fn(lambda: s.sort(uniform), iters=iters, repeats=repeats,
+                warmup=warmup)
     calls = warmup + iters * repeats
-    chunks = launch_counts()["chunk"]
+    chunks = _recorded(timer)["chunk"]
     if chunks != calls:
         raise AssertionError(f"timed adaptive sort: {chunks} chunk launches "
                              f"in {calls} calls")
@@ -2327,12 +2313,12 @@ def radix_profile_phase(n: int = N) -> dict:
 
 
 def _path_launches(config: SortConfig, kernels, oracles) -> dict:
-    """Drive one backend's main path with the counters zeroed just before
-    and read just after; every kernel of `kernels` must have launched."""
-    reset_launches()
-    main_path(config=config, oracles=oracles)
-    torch.cuda.synchronize()
-    launches = launch_counts()
+    """Drive one backend's main path inside a launch recorder; every
+    kernel of `kernels` must have launched."""
+    with timing.LaunchTimer() as timer:
+        main_path(config=config, oracles=oracles)
+        torch.cuda.synchronize()
+    launches = _recorded(timer)
     log("[launches]", config.backend, json.dumps(launches))
     missing = [k for k in kernels if launches[k] == 0]
     if missing:
@@ -2345,16 +2331,16 @@ BACKEND_KERNELS = {"network": NETWORK_KERNELS, "radix": RADIX_KERNELS,
 
 
 def _auto_launches(oracles) -> dict:
-    """Drive the 'auto' main path, 32- and 64-bit, with the counters zeroed
-    just before and read just after: every kernel of each backend 'auto'
-    picked must have launched, and no kernel of a backend it did not pick
-    (each sort's launches are also held to its kind's backend inside the
-    path). Returns the launches per kernel."""
-    reset_launches()
-    picked = {"u32": main_path(oracles=oracles),
-              "u64": main_path64(oracles=oracles)}
-    torch.cuda.synchronize()
-    launches = launch_counts()
+    """Drive the 'auto' main path, 32- and 64-bit, inside a launch
+    recorder: every kernel of each backend 'auto' picked must have
+    launched, and no kernel of a backend it did not pick (each sort's
+    launches are also held to its kind's backend inside the path).
+    Returns the launches per kernel."""
+    with timing.LaunchTimer() as timer:
+        picked = {"u32": main_path(oracles=oracles),
+                  "u64": main_path64(oracles=oracles)}
+        torch.cuda.synchronize()
+    launches = _recorded(timer)
     log("[launches] auto", json.dumps({"backends": picked, **launches}))
     used = {k for p in picked.values() for b in p.values()
             for k in BACKEND_KERNELS[b]}

@@ -25,6 +25,7 @@ from vulkan_radix_sort_tpu_torch.config import (
     CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK)
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
+from vulkan_radix_sort_tpu_torch.utils import timing
 
 C = 1 << 10
 NP2 = 1 << 12
@@ -287,13 +288,15 @@ def test_cross_span_split_is_exact(mode, r):
 
 
 def test_cpu_wrapper_runs_plain_and_counts_no_launch():
-    bk.reset_launches()
     port, _, _ = _data("keys", seed=8)
     want = [a.clone() for a in port]
     bk.run_plain(bk.spec("chunk", C), want, bk.KEYS, NP2 // C)
-    bk.chunk(port, bk.KEYS, C, NP2 // C)
+    with timing.LaunchTimer() as timer:
+        bk.chunk(port, bk.KEYS, C, NP2 // C)
     assert torch.equal(port[0], want[0])
-    assert all(v == 0 for v in bk.launches.values())
+    # one plain stand-in, recorded without events: no kernel launch
+    assert [r["names"] for r in timer.records] == [["chunk"]]
+    assert all(r["events"] is None for r in timer.records)
 
 
 def test_wrapper_rejects_bad_buffers():

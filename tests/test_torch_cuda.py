@@ -37,6 +37,17 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _launched(timer: timing.LaunchTimer) -> dict[str, int]:
+    """Kernel launches by counter name in a LaunchTimer's records: those
+    with CUDA events."""
+    got = {}
+    for rec in timer.records:
+        if rec["events"] is not None:
+            for k in rec["names"]:
+                got[k] = got.get(k, 0) + 1
+    return got
+
+
 def _u32(n, seed, mod=None):
     k = np.random.default_rng(seed).integers(
         0, 2**32, n, dtype=np.uint64).astype(np.uint32)
@@ -399,29 +410,31 @@ def test_cuda_radix_kernels_match_plain(cuda_device, bits, key_value):
     keys[-777:] = 0xFFFFFFFF
     dk = torch.from_numpy(keys).to(cuda_device)
     dv = torch.from_numpy(_u32(n, 5)).to(cuda_device) if key_value else None
-    k7.reset_launches()
-    k8.reset_launches()
+    timer = timing.LaunchTimer()
     for p in range(cfg.num_passes):
         kw = dict(shift=p * bits, config=cfg, key_value=key_value)
-        got = k7.block_sort(dk, dv, **kw)
+        with timer:
+            got = k7.block_sort(dk, dv, **kw)
         want = k7.block_sort_plain(dk, dv, **kw)
         torch.cuda.synchronize()
         for a, b in zip(got, want):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
         hist = want[-1]
-        g, offsets = k8.spine(hist)
+        with timer:
+            g, offsets = k8.spine(hist)
         want_g, want_off = k8.spine_plain(hist)
         torch.cuda.synchronize()
         assert torch.equal(g, want_g) and torch.equal(offsets, want_off)
         args = (want[0], hist, want_g, want[1] if key_value else None)
-        got = k8.stream_place(*args, config=cfg, key_value=key_value,
-                              shift=p * bits, offsets=offsets)
+        with timer:
+            got = k8.stream_place(*args, config=cfg, key_value=key_value,
+                                  shift=p * bits, offsets=offsets)
         want = k8.stream_place_plain(*args, config=cfg, key_value=key_value)
         torch.cuda.synchronize()
         for a, b in zip(*((got, want) if key_value else ((got,), (want,)))):
             assert torch.equal(a.view(torch.int32), b.view(torch.int32))
-    assert k7.launches["block_sort"] == k8.launches["spine"] == \
-        k8.launches["place"] == cfg.num_passes
+    assert _launched(timer) == dict.fromkeys(("block_sort", "spine",
+                                              "place"), cfg.num_passes)
 
 
 @pytest.mark.cuda
@@ -495,10 +508,10 @@ def test_cuda_place_needs_the_shift(cuda_device):
     dk = torch.from_numpy(_u32(1 << 16, 37)).to(cuda_device)
     y, hist = k7.block_sort(dk, shift=0, config=cfg)
     g, offsets = k8.spine(hist)
-    k8.reset_launches()
-    with pytest.raises(ValueError, match="shift"):
+    with timing.LaunchTimer() as timer, pytest.raises(ValueError,
+                                                      match="shift"):
         k8.stream_place(y, hist, g, config=cfg, offsets=offsets)
-    assert k8.launches["place"] == 0
+    assert _launched(timer) == {}
 
 
 @pytest.mark.cuda
@@ -514,10 +527,11 @@ def test_cuda_place_without_offsets_runs_the_spine(cuda_device, key_value):
                         key_value=key_value)
     g = k8.digit_offsets(out[-1])
     args = (out[0], out[-1], g, out[1] if key_value else None)
-    k8.reset_launches()
-    got = k8.stream_place(*args, config=cfg, key_value=key_value, shift=8)
+    with timing.LaunchTimer() as timer:
+        got = k8.stream_place(*args, config=cfg, key_value=key_value,
+                              shift=8)
     torch.cuda.synchronize()
-    assert k8.launches == {"spine": 1, "place": 1}
+    assert _launched(timer) == {"spine": 1, "place": 1}
     want = k8.stream_place_plain(*args, config=cfg, key_value=key_value)
     for a, b in zip(*((got, want) if key_value else ((got,), (want,)))):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
@@ -614,13 +628,13 @@ def test_cuda_local_gated_matches_plain(cuda_device, mode):
     a = [torch.from_numpy(_u32(n, 20 + i, 1000)).to(cuda_device)
          for i in range(mode.n_arrays)]
     b = [x.clone() for x in a]
-    bk.reset_launches()
-    bk.local_gated(a, mode, C, r, units, valid)
+    with timing.LaunchTimer() as timer:
+        bk.local_gated(a, mode, C, r, units, valid)
     bk.run_plain(bk.spec("local_gated", C, r), b, mode, units, valid)
     torch.cuda.synchronize()
     for x, y in zip(a, b):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
-    assert bk.launches["local_gated"] == 1 and bk.launches["gate"] == 0
+    assert _launched(timer) == {"local_gated": 1}
 
 
 @pytest.mark.cuda
@@ -788,11 +802,12 @@ def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
     got = s.sort(dk).cpu().numpy().view(np.uint64)
     np.testing.assert_array_equal(got, k[np.argsort(u, kind="stable")]
                                   .view(np.uint64))
-    bk.reset_launches()
+    timer = timing.LaunchTimer()
     for stable in (True, False):
         order = (np.argsort(u, kind="stable") if stable
                  else np.lexsort((v, u)))
-        gk, gv = s.sort_key_value(dk, dv, stable=stable)
+        with timer:
+            gk, gv = s.sort_key_value(dk, dv, stable=stable)
         np.testing.assert_array_equal(gk.cpu().numpy().view(np.uint64),
                                       k[order].view(np.uint64))
         np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
@@ -800,13 +815,15 @@ def test_cuda_sorter64_matches_numpy(cuda_device, dtype):
         cnt = torch.tensor(m, device=cuda_device)
         order = (np.argsort(u[:m], kind="stable") if stable
                  else np.lexsort((v[:m], u[:m])))
-        gk, gv = s.sort_key_value(dk, dv, count=cnt, stable=stable)
+        with timer:
+            gk, gv = s.sort_key_value(dk, dv, count=cnt, stable=stable)
         np.testing.assert_array_equal(gk.cpu().numpy()[:m].view(np.uint64),
                                       k[:m][order].view(np.uint64))
         np.testing.assert_array_equal(gv.cpu().numpy()[:m], v[:m][order])
         np.testing.assert_array_equal(gv.cpu().numpy()[m:], v[m:])
-    assert all(bk.launches[k] > 0 for k in ("chunk", "fused", "cross",
-                                            "local", "gate"))
+    launched = _launched(timer)
+    assert all(launched.get(k, 0) > 0 for k in ("chunk", "fused", "cross",
+                                                "local", "gate"))
     got = s.sort(dk, count=torch.tensor(n - 7, device=cuda_device))
     np.testing.assert_array_equal(
         got.cpu().numpy()[:n - 7].view(np.uint64),
@@ -871,16 +888,18 @@ STAGE_SORTS = {  # carry -> (stage_times call, the sort it times)
 @pytest.mark.parametrize("name", list(STAGE_SORTS))
 def test_cuda_stage_times(cuda_device, name):
     """stage_times* at 2^20 on the card: every launch timed, the stage sum
-    positive, and the launch list as long as one sort's launch counters."""
+    positive, and the launch list as long as one sort's recorded launches."""
     n = 1 << 20
     k = torch.from_numpy(_u32(n, 30)).to(cuda_device)
     v = torch.from_numpy(_u32(n, 31)).to(cuda_device)
     stage_times, sort = STAGE_SORTS[name]
     st = stage_times(k, v)
-    bk.reset_launches()
-    sort(k, v)
+    with timing.LaunchTimer() as timer:
+        sort(k, v)
     torch.cuda.synchronize()
-    assert len(st["kernels"]) == sum(bk.launches[x] for x in NET_LAUNCHES)
+    launched = _launched(timer)
+    assert len(st["kernels"]) == sum(launched.get(x, 0)
+                                     for x in NET_LAUNCHES)
     assert st["mode"] == name
     assert all(t > 0 for _, t in st["kernels"])
     assert st["chunk"] > 0 and st["chunk"] + st["cross"] + st["local"] > 0
@@ -916,18 +935,18 @@ def test_cuda_adaptive_network(cuda_device, dist):
     s = vrs.Sorter(n, config=SortConfig(backend="network", adaptive=True))
     k = datagen.generate_keys(n, seed=33, distribution=dist)
     dk = torch.from_numpy(k).to(cuda_device)
-    bk.reset_launches()
-    got = s.sort(dk).cpu().numpy()
+    with timing.LaunchTimer() as timer:
+        got = s.sort(dk).cpu().numpy()
     np.testing.assert_array_equal(got, np.sort(k))
-    launched = sum(bk.launches[x] for x in NET_LAUNCHES)
+    launched = sum(_launched(timer).get(x, 0) for x in NET_LAUNCHES)
     assert (launched == 0) == (dist != "uniform")
     v = datagen.generate_values(n, seed=34)
-    bk.reset_launches()
-    gk, gv = s.sort_key_value(dk, torch.from_numpy(v).to(cuda_device))
+    with timing.LaunchTimer() as timer:
+        gk, gv = s.sort_key_value(dk, torch.from_numpy(v).to(cuda_device))
     order = np.argsort(k, kind="stable")
     np.testing.assert_array_equal(gk.cpu().numpy(), k[order])
     np.testing.assert_array_equal(gv.cpu().numpy(), v[order])
-    launched = sum(bk.launches[x] for x in NET_LAUNCHES)
+    launched = sum(_launched(timer).get(x, 0) for x in NET_LAUNCHES)
     assert (launched == 0) == (dist in ("sorted", "constant"))
 
 

@@ -29,7 +29,7 @@ from vulkan_radix_sort_tpu_torch.config import SortConfig, config_from_jax
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import bitops
-from vulkan_radix_sort_tpu_torch.utils import datagen
+from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 
 CHUNK = 256
 N = (1 << 11) + 11
@@ -164,7 +164,7 @@ def test_sort_pairs_w64_matches_jax(stable, monkeypatch):
     u = _keys(torch.uint64, n=n, seed=7)
     hi, lo = [np.array(w) for w in jbitops.split_u64(jnp.asarray(u))]
     v = datagen.generate_values(n, seed=8)
-    bk.reset_launches()
+    timer = timing.LaunchTimer()
     for count in (None, n - 700):
         if count is not None:  # the caller's mask: the maximum past count
             hi, lo = hi.copy(), lo.copy()
@@ -172,8 +172,9 @@ def test_sort_pairs_w64_matches_jax(stable, monkeypatch):
             if not stable:
                 v = v.copy()
                 v[count:] = 0xFFFFFFFF
-        got = tbit.sort_pairs_w64(*map(torch.from_numpy, (hi, lo, v)),
-                                  count, chunk=CHUNK, stable=stable)
+        with timer:
+            got = tbit.sort_pairs_w64(*map(torch.from_numpy, (hi, lo, v)),
+                                      count, chunk=CHUNK, stable=stable)
         with jax.enable_x64(False):
             want = jbit.sort_pairs_w64.__wrapped__(
                 *map(jnp.asarray, (hi, lo, v)), count, chunk=CHUNK,
@@ -181,7 +182,9 @@ def test_sort_pairs_w64_matches_jax(stable, monkeypatch):
         m = n if count is None else count  # past count: tied, unspecified
         for g, w in zip(got, want):
             _eq(g[:m], np.asarray(w)[:m])
-    assert all(c == 0 for c in bk.launches.values())  # plain versions only
+    # plain versions only: every record without events
+    assert timer.records
+    assert all(r["events"] is None for r in timer.records)
 
 
 def test_reference_backend64_matches_jax_xla():

@@ -8,7 +8,8 @@ compiles to an object in its own nvcc process, all started together, and
 the objects link into one library in `_build/` beside this file, named by
 a hash of the sources, their shared header and the flags, so a changed
 source builds anew and an unchanged one loads at once. Nothing is built
-at import time: the CPU paths never need a compiler.
+at import time: the CPU paths never need a compiler. `library()` keeps
+what it did in `built`.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _HERE = Path(__file__).resolve().parent
@@ -30,6 +32,11 @@ HEADERS = ("network.cuh", "bitonic.cuh", "fused.cuh", "wide.cuh")
 COMPILE_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                  "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 LINK_FLAGS = ("-shared",)
+
+# What the process's `library()` did, once it has run: `seconds` to build
+# (or find) and load the library, and the sources nvcc `compiled` (none
+# when the library was already built).
+built: dict | None = None
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # The network kernels: (mode, a0, a1, a2, a3, n_units, *extra, valid,
@@ -89,13 +96,14 @@ def _run_all(cmds: list[list[str]]) -> list[str]:
     return outs
 
 
-def build() -> tuple[Path, str]:
-    """Compile the sources if needed; return the library path and the
-    compiler's report (`-Xptxas -v`: registers, shared memory, spills)."""
+def build() -> tuple[Path, str, tuple[str, ...]]:
+    """Compile the sources if needed; return the library path, the
+    compiler's report (`-Xptxas -v`: registers, shared memory, spills) and
+    the sources compiled (none when the library was already built)."""
     lib = BUILD_DIR / f"libvrs_kernels_{_digest()}.so"
     log = lib.with_suffix(".log")
     if lib.exists() and log.exists():
-        return lib, log.read_text()
+        return lib, log.read_text(), ()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{lib.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
@@ -111,18 +119,21 @@ def build() -> tuple[Path, str]:
     finally:
         for path in (*objs, tmp):
             path.unlink(missing_ok=True)
-    return lib, report
+    return lib, report, SOURCES
 
 
 @functools.cache
 def library() -> ctypes.CDLL:
     """The loaded kernel library, built on first call."""
-    path, _ = build()
+    global built
+    start = time.perf_counter()
+    path, _, compiled = build()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = list(argtypes)
         fn.restype = _I
+    built = {"seconds": time.perf_counter() - start, "compiled": compiled}
     return lib
 
 

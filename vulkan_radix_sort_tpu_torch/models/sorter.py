@@ -39,6 +39,7 @@ import torch
 
 from ..config import SortConfig, default_config, round_up
 from ..ops import bitonic, bitops, radix, reference
+from ..utils import timing
 from ..utils.timing import StageTimes, time_fn
 
 
@@ -93,6 +94,20 @@ def _pick_backend(cfg: SortConfig, device: torch.device,
     return engine
 
 
+# The counter of each backend that can serve a call ('adaptive': the
+# opt-in fast path answered it with a copy or a flip).
+_SERVED = {b: f"vrs.backend.{b}"
+           for b in ("radix", "network", "reference", "adaptive")}
+
+
+def _served(backend: str, n: int) -> None:
+    """Count the backend whose work gives a call's result: radix hands
+    n < MIN_RADIX_N to the reference."""
+    if backend == "radix" and n < radix.MIN_RADIX_N:
+        backend = "reference"
+    timing.count(_SERVED[backend])
+
+
 def _order_view(u: torch.Tensor) -> torch.Tensor:
     """A signed view of encoded keys (uint32 or uint64) with their order:
     the sign bit flipped. torch has no `<` for uint32 or uint64."""
@@ -117,14 +132,14 @@ def _adaptive_sort(u: torch.Tensor, slow):
     ascending sort. The branch is one host read of the two flags (a sync
     with the card); both branches are never computed."""
     if u.numel() < 2:
+        timing.count(_SERVED["adaptive"])
         return u.clone()
     s = _order_view(u)
     nondec, noninc = torch.stack(((s[1:] >= s[:-1]).all(),
                                   (s[1:] <= s[:-1]).all())).tolist()
-    if nondec:
-        return u.clone()
-    if noninc:
-        return _flip(u)
+    if nondec or noninc:
+        timing.count(_SERVED["adaptive"])
+        return u.clone() if nondec else _flip(u)
     return slow(u)
 
 
@@ -133,9 +148,11 @@ def _adaptive_sort_pairs(u: torch.Tensor, v: torch.Tensor, slow):
     the stable answer and a valid non-stable one. Reverse-sorted keys go
     to `slow`: a flip would reverse the order of equal keys."""
     if u.numel() < 2:
+        timing.count(_SERVED["adaptive"])
         return u.clone(), v.clone()
     s = _order_view(u)
     if (s[1:] >= s[:-1]).all().item():
+        timing.count(_SERVED["adaptive"])
         return u.clone(), v.clone()
     return slow(u, v)
 
@@ -247,6 +264,11 @@ class Sorter:
         prefix and leaves the tail untouched: the reference's indirect
         path. With SortConfig.adaptive and no `count`, sorted,
         reverse-sorted and constant keys skip the engine."""
+        with timing.span("vrs.sort", n=keys.numel(), backend=self.backend,
+                         count=count is not None):
+            return self._sort(keys, count)
+
+    def _sort(self, keys: torch.Tensor, count) -> torch.Tensor:
         self._check(keys)
         u = self._encode(keys)
         if count is None:
@@ -256,21 +278,27 @@ class Sorter:
         if self.wide:
             return self._decode(self._sort64(u, count))
         cnt = bitonic.count_tensor(count, self.device)
+        _served(self.backend, u.numel())
         if self.backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
-        live = self._live(u.numel(), cnt)
-        # The first `count` slots of the masked keys-only sort are exactly
-        # the sorted prefix: sentinels and genuine 0xFFFFFFFF keys are
-        # indistinguishable in the output, so no index carry is needed.
-        masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
+        with timing.span("vrs.count_mask"):
+            live = self._live(u.numel(), cnt)
+            # The first `count` slots of the masked keys-only sort are
+            # exactly the sorted prefix: sentinels and genuine 0xFFFFFFFF
+            # keys are indistinguishable in the output, so no index carry
+            # is needed.
+            masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
         if self.backend == "network":
             k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
         else:  # radix sorts every pass in full: count only masks
             k = radix.sort_u32(masked, config=self.config)
-        return self._decode(bitops.select_u32(live, k, u))
+        with timing.span("vrs.count_mask"):
+            k = bitops.select_u32(live, k, u)
+        return self._decode(k)
 
     def _sort32(self, u: torch.Tensor) -> torch.Tensor:
         """Keys-only sort of encoded uint32 keys on `backend`."""
+        _served(self.backend, u.numel())
         if self.backend == "network":
             return bitonic.sort_u32(u, chunk=self.config.chunk_keys)
         if self.backend == "radix":
@@ -281,6 +309,7 @@ class Sorter:
                       stable: bool):
         """Key-value sort of encoded uint32 keys on the kind's backend."""
         backend = self._backend_pairs(stable)
+        _served(backend, u.numel())
         if backend == "network":
             return bitonic.sort_pairs_u32(u, values,
                                           chunk=self.config.chunk_carry,
@@ -304,6 +333,13 @@ class Sorter:
         come back as they are (with copies), the stable answer and a
         valid non-stable one.
         """
+        with timing.span("vrs.sort_key_value", n=keys.numel(),
+                         backend=self._backend_pairs(stable),
+                         count=count is not None):
+            return self._sort_key_value(keys, values, count, stable)
+
+    def _sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
+                        count, stable: bool):
         self._check(keys, values)
         u = self._encode(keys)
         if count is None:
@@ -319,26 +355,31 @@ class Sorter:
             return self._decode(k), v
         cnt = bitonic.count_tensor(count, self.device)
         backend = self._backend_pairs(stable)
+        _served(backend, u.numel())
         if backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
             return self._decode(k), v
-        live = self._live(u.numel(), cnt)
-        masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
+        with timing.span("vrs.count_mask"):
+            live = self._live(u.numel(), cnt)
+            masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
+            # radix is stable either way: the masked tail, behind every
+            # genuine 0xFFFFFFFF key in input order, stays behind it. The
+            # non-stable network: mask values too, making the masked tail
+            # the lexicographic maximum, so genuine (max key, max value)
+            # pairs are bitwise interchangeable with it and the prefix
+            # stays exact
+            mv = values if stable or backend == "radix" else \
+                bitops.select_u32(live, values, bitops.max_like_u32(values))
         if backend == "radix":
-            # stable either way: the masked tail, behind every genuine
-            # 0xFFFFFFFF key in input order, stays behind it
             k, v = radix.sort_pairs_u32(masked, values, config=self.config)
         else:
-            # non-stable: mask values too, making the masked tail the
-            # lexicographic maximum, so genuine (max key, max value) pairs
-            # are bitwise interchangeable with it and the prefix stays exact
-            mv = values if stable else bitops.select_u32(
-                live, values, bitops.max_like_u32(values))
             k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
                                           chunk=self.config.chunk_carry,
                                           stable=stable)
-        return (self._decode(bitops.select_u32(live, k, u)),
-                bitops.select_u32(live, v, values))
+        with timing.span("vrs.count_mask"):
+            k = bitops.select_u32(live, k, u)
+            v = bitops.select_u32(live, v, values)
+        return self._decode(k), v
 
     # -- 64-bit keys: (hi, lo) words (JAX sorter.py:234-262, 287-315,
     # 340-367, 404-437) ----------------------------------------------------
@@ -352,6 +393,7 @@ class Sorter:
         chunk = self.config.chunk_carry
         cnt = None if count is None else bitonic.count_tensor(count,
                                                               self.device)
+        _served(self.backend, u.numel())
         if self.backend == "reference":
             return (reference.sort_keys64(u) if cnt is None
                     else reference.sort_keys64_count(u, cnt))
@@ -359,11 +401,13 @@ class Sorter:
             hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(u), chunk=chunk,
                                             stable=False)
             return bitops.merge_u64(hi, lo)
-        live = self._live(u.numel(), cnt)
-        masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
-        hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(masked), cnt,
-                                        chunk=chunk, stable=False)
-        return bitops.select_u64(live, bitops.merge_u64(hi, lo), u)
+        with timing.span("vrs.count_mask"):
+            live = self._live(u.numel(), cnt)
+            masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
+        k = bitops.merge_u64(*bitonic.sort_pairs_u32(
+            *bitops.split_u64(masked), cnt, chunk=chunk, stable=False))
+        with timing.span("vrs.count_mask"):
+            return bitops.select_u64(live, k, u)
 
     def _sort_pairs64(self, u: torch.Tensor, values: torch.Tensor, count,
                       stable: bool):
@@ -372,23 +416,28 @@ class Sorter:
         chunk = self.config.chunk_carry
         cnt = None if count is None else bitonic.count_tensor(count,
                                                               self.device)
-        if self._backend_pairs(stable) == "reference":
+        backend = self._backend_pairs(stable)
+        _served(backend, u.numel())
+        if backend == "reference":
             return (reference.sort_pairs64(u, values) if cnt is None
                     else reference.sort_pairs64_count(u, values, cnt))
         if cnt is None:
             hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(u), values,
                                                chunk=chunk, stable=stable)
             return bitops.merge_u64(hi, lo), v
-        live = self._live(u.numel(), cnt)
-        masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
-        # non-stable: the masked tail is the lexicographic maximum, as in
-        # sort_key_value
-        mv = values if stable else bitops.select_u32(
-            live, values, bitops.max_like_u32(values))
+        with timing.span("vrs.count_mask"):
+            live = self._live(u.numel(), cnt)
+            masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
+            # non-stable: the masked tail is the lexicographic maximum, as
+            # in sort_key_value
+            mv = values if stable else bitops.select_u32(
+                live, values, bitops.max_like_u32(values))
         hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(masked), mv, cnt,
                                            chunk=chunk, stable=stable)
-        return (bitops.select_u64(live, bitops.merge_u64(hi, lo), u),
-                bitops.select_u32(live, v, values))
+        k = bitops.merge_u64(hi, lo)
+        with timing.span("vrs.count_mask"):
+            return (bitops.select_u64(live, k, u),
+                    bitops.select_u32(live, v, values))
 
     # -- timing queries (analog of the timestamps, h.in:39-50) -------------
 

@@ -25,15 +25,15 @@ K6 is K4's kernel launched over every C-block of a slot buffer under the
 slot merge's per-block mask, with no prefix clip: on the TPU it exists
 because a BlockSpec pipeline moves every grid step's block, while on
 Hopper a gated thread block returns before its first load and moves
-nothing. It has its own wrapper and launch counter so that a run shows
-the slot merge went through it.
+nothing. It has its own wrapper and launch counter name so that a run
+shows the slot merge went through it.
 
 The wrapper (`chunk`, `fused`, `cross`, `local`, `local_gated`, all
 through `run`) runs
 the plain version when the buffers lie on the CPU, and otherwise launches
-the CUDA kernel or raises; it counts each launch in `launches`, and an
-active `utils.timing.LaunchTimer` records it (with CUDA events on a card,
-by name alone on the CPU). The plain
+the CUDA kernel or raises; an active `utils.timing.LaunchTimer` records
+each launch under its counter names (`counters`; with CUDA events on a
+card, without on the CPU). The plain
 version (`run_plain`, on the same `spec`) applies the same compare-exchange
 stages with PyTorch tensor operations, widened to int64 where uint32 has no
 comparisons. It serves the CPU tests and the kernel-versus-plain check on
@@ -157,18 +157,6 @@ def block_geometry(kernel: str, mode: Mode, C: int) -> tuple[int, int]:
             threads = (MAX_THREADS if C // MAX_THREADS * mode.n_arrays
                        <= REG_WORDS // 2 else NET_THREADS)
     return threads, C // threads
-
-
-# Launches per kernel since the last reset; "gate" counts the launches of
-# K1-K4 that carried a `valid` array (K5; K6 always carries one and counts
-# only as "local_gated"). The only mutable state of the port.
-launches = {"chunk": 0, "fused": 0, "cross": 0, "local": 0, "gate": 0,
-            "local_gated": 0}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def log2(n: int) -> int:
@@ -317,12 +305,12 @@ def _launch(launch: Launch, arrs, mode: Mode, nunits: int, valid) -> None:
         err = getattr(lib, launch.cfn)(mode.code, *ptrs, nunits,
                                        *launch.cargs, vptr, stream)
     _build.check(err, f"{launch.cfn} ({mode.name})")
-    for name in counters(launch, valid):
-        launches[name] += 1
 
 
 def counters(launch: Launch, valid) -> list[str]:
-    """The launch counters one launch of the kernel adds to."""
+    """The launch counters one launch of the kernel adds to: its kernel's
+    name, and "gate" for a launch of K1-K4 that carries a `valid` array
+    (K5; K6 always carries one and counts only as "local_gated")."""
     gate = valid is not None and launch.kernel != "local_gated"
     return [launch.kernel] + (["gate"] if gate else [])
 

@@ -18,9 +18,10 @@ and stores each sorted block, so its buffers must be 16-byte aligned
 (`check_aligned`).
 
 `block_sort` runs the plain version when the keys lie on the CPU, and
-otherwise launches the kernel or raises; it counts each launch in
-`launches`. `block_sort_plain` is the plain version on any device: the CPU
-tests use it, and `chip_smoke.py` holds the kernel against it on the card.
+otherwise launches the kernel or raises; an active
+`utils.timing.LaunchTimer` records each launch. `block_sort_plain` is the
+plain version on any device: the CPU tests use it, and `chip_smoke.py`
+holds the kernel against it on the card.
 """
 
 from __future__ import annotations
@@ -32,14 +33,7 @@ from ..utils import timing
 from ..config import RADIX_THREADS, SortConfig
 from .bitops import check_aligned, widen_u32
 
-# Launches of the CUDA kernel since the last reset.
-launches = {"block_sort": 0}
-
 VECTOR_KEYS = 4  # fewest keys a K7 thread holds: 16 bytes
-
-
-def reset_launches() -> None:
-    launches["block_sort"] = 0
 
 
 def sort_geometry(block: int) -> tuple[int, int]:
@@ -132,7 +126,6 @@ def _launch(keys, values, shift: int, config: SortConfig, key_value: bool):
                 yv.data_ptr() if key_value else None, hist.data_ptr(),
                 nblocks, config.block, shift, config.digit_bits, stream)
         _build.check(err, "vrs_block_sort")
-        launches["block_sort"] += 1
     return (y, yv, hist) if key_value else (y, hist)
 
 

@@ -30,6 +30,7 @@ from ..config import KEY_SENTINEL, SortConfig, default_config, round_up
 from . import block_sort as k7
 from . import reference
 from . import stream_place as k8
+from ..utils import timing
 from ..utils.timing import time_fn
 from .bitops import check_u32, pad_u32
 
@@ -46,7 +47,8 @@ def sort_u32(keys: torch.Tensor, *, config: SortConfig | None = None):
     n = keys.numel()
     if n < MIN_RADIX_N:
         return reference.sort_keys(keys)
-    x = pad_u32(keys, round_up(n, config.block), KEY_SENTINEL)
+    with timing.span("vrs.pad"):
+        x = pad_u32(keys, round_up(n, config.block), KEY_SENTINEL)
     for p in range(config.num_passes):
         shift = p * config.digit_bits
         y, hist = k7.block_sort(x, shift=shift, config=config)
@@ -67,7 +69,8 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, *,
     if n < MIN_RADIX_N:
         return reference.sort_pairs(keys, values)
     size = round_up(n, config.block)
-    x, v = pad_u32(keys, size, KEY_SENTINEL), pad_u32(values, size, 0)
+    with timing.span("vrs.pad"):
+        x, v = pad_u32(keys, size, KEY_SENTINEL), pad_u32(values, size, 0)
     for p in range(config.num_passes):
         shift = p * config.digit_bits
         y, yv, hist = k7.block_sort(x, v, shift=shift, config=config,

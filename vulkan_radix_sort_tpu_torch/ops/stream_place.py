@@ -21,10 +21,11 @@ the key itself at the pass's `shift` and writes key i of block p to
 never in place over its input.
 
 `spine` and `stream_place` run the plain versions when their input lies
-on the CPU, and otherwise launch their kernel or raise; they count each
-launch in `launches`. `spine_plain` (`digit_offsets` and `block_offsets`)
-and `stream_place_plain` are the plain versions on any device; the plain
-placement finds each element's run from the histogram and needs no shift.
+on the CPU, and otherwise launch their kernel or raise; an active
+`utils.timing.LaunchTimer` records each launch. `spine_plain`
+(`digit_offsets` and `block_offsets`) and `stream_place_plain` are the
+plain versions on any device; the plain placement finds each element's
+run from the histogram and needs no shift.
 """
 
 from __future__ import annotations
@@ -34,15 +35,6 @@ import torch
 from .. import _build
 from ..utils import timing
 from ..config import SortConfig
-
-# Launches of the CUDA kernels since the last reset.
-launches = {"spine": 0, "place": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
 
 def digit_offsets(hist: torch.Tensor) -> torch.Tensor:
     """Global exclusive digit offsets (radix,) int32 from the (nblocks,
@@ -93,7 +85,6 @@ def _spine_launch(hist: torch.Tensor):
                             offsets.data_ptr(), nblocks,
                             radix.bit_length() - 1, stream)
     _build.check(err, "vrs_spine")
-    launches["spine"] += 1
     return g_row, offsets
 
 
@@ -185,7 +176,6 @@ def _launch(y, hist, offsets, values, shift: int, config: SortConfig,
                 outv.data_ptr() if key_value else None, nblocks,
                 config.block, shift, config.digit_bits, stream)
         _build.check(err, "vrs_place")
-        launches["place"] += 1
     return (out, outv) if key_value else out
 
 

@@ -44,7 +44,7 @@ def opcode_mix(sass: str, pattern: str):
 
 
 def sass_mix(patterns) -> list:
-    lib, _ = _build.build()
+    lib, _, _ = _build.build()
     cuobjdump = _build.nvcc().replace("nvcc", "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
                           text=True, check=True).stdout
