@@ -134,9 +134,10 @@ import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch import _build
 from vulkan_radix_sort_tpu_torch.config import (
     CHUNK_CARRY, CHUNK_KEYS, KEY_SENTINEL, MAX_RADIX_BLOCK, MIN_CHUNK,
-    RADIX_THREADS, SortConfig)
+    RADIX_THREADS, SortConfig, round_up)
 from vulkan_radix_sort_tpu_torch.ops import bitonic, bitonic_kernels as bk
 from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
+from vulkan_radix_sort_tpu_torch.ops import radix
 from vulkan_radix_sort_tpu_torch.ops import stream_place as k8
 from vulkan_radix_sort_tpu_torch.parallel import distributed as td
 from vulkan_radix_sort_tpu_torch.parallel import scaling
@@ -158,6 +159,14 @@ TWO_DIGITS = -2      # `_radix_inputs`: keys of two digits at every shift
 # 301 blocks of the default 16384 keys: no multiple of K7's resident grid
 # (132 SMs on an H100), so thread blocks walk 2 or 3 blocks each
 N_ODD = 301 * (1 << 14)
+
+
+def path_count(n: int) -> int:
+    """The count of the main path's count= sorts at n: a tail of about
+    n / 11 keys past it, in no block's alignment. A launch reads its count
+    only on the card, so `bound_ms` takes a count= kernel's from here."""
+    return n - n // 11 - 12345
+
 WORLD = 4            # ranks of the distributed path, all on cuda:0
 N_RANK = 1 << 25     # keys per rank (2^27 in all)
 SLOTS, SLOT = 4, 1 << 24  # the slot buffer of 4 ranks x 2^25: slack 2
@@ -227,13 +236,26 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
               "redesigned: digit from the key, one shared delta lookup a "
               "key, 512-key tiles with every load issued first; the spine "
               "one cluster launch"),
+    "mask_pad": ("radix count= mask-pad", RADIX_CU,
+                 "none: XLA ops (vulkan_radix_sort_tpu/models/sorter.py:374)",
+                 "new: the count= masks and the pad in one pass, 16-byte "
+                 "vectors (words for an unaligned input view), the count "
+                 "read on the card"),
+    "restore_tail": ("radix count= tail", RADIX_CU,
+                     "none: XLA ops (vulkan_radix_sort_tpu/models/"
+                     "sorter.py:387)",
+                     "new: the sorted keys' slots [count, n) back from the "
+                     "input, in place; exits at once when count = n"),
 }
 # the radix kernels in launch order; the spine is K8's column accumulation
 # (the TPU kernel's own), so the K8 row carries it
 RADIX_KERNELS = ("block_sort", "spine", "place")
+# a radix count= sort's one launch before the passes and one after them
+RADIX_COUNT_KERNELS = ("mask_pad", "restore_tail")
 MERGE_KERNELS = ("local_gated",)
-NETWORK_KERNELS = tuple(k for k in KERNELS
-                        if k not in RADIX_KERNELS + MERGE_KERNELS)
+NETWORK_KERNELS = tuple(
+    k for k in KERNELS
+    if k not in RADIX_KERNELS + RADIX_COUNT_KERNELS + MERGE_KERNELS)
 
 
 def log(*a):
@@ -257,9 +279,9 @@ def sync(device) -> None:
 
 
 # Every launch counter name: the network kernels' (`bk.counters`), K7's,
-# the spine's and K8's.
+# the spine's, K8's, and the radix count= pad and tail.
 LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
-                   "block_sort", "spine", "place")
+                   "block_sort", "spine", "place", "mask_pad", "restore_tail")
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -273,13 +295,14 @@ LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
 # fused_wide_kernel (w3); cross: the register-column kernel at every span from 1 to the
 # cap, 10 for keys and 8 for pairs and stable, the shared-memory one in
 # w3 and w4_big; block sort: keys or kv, 4 to 32 keys a thread, 4- or
-# 8-bit digits; placement: keys or kv; spine: one cluster size.
+# 8-bit digits; placement: keys or kv; spine: one cluster size; the
+# count= mask-pad: keys or kv (the tail's kernel is no template).
 INSTANTIATIONS = {"chunk_kernel": 23, "chunk_merge_kernel": 6,
                   "chunk_wide_kernel": 5, "local_kernel": 34,
                   "cross_kernel": 2, "cross_cols_kernel": 26,
                   "fused_kernel": 24, "fused_wide_kernel": 5,
                   "block_sort_kernel": 16, "place_kernel": 2,
-                  "spine_kernel": 1}
+                  "spine_kernel": 1, "mask_pad_kernel": 2}
 
 
 def build() -> None:
@@ -449,9 +472,11 @@ def check_radix_kernels(sizes=RADIX_CHECK_SIZES,
     shapes (15 or 16 each). The
     spine and K8 take K7's plain output, so their runs are real; K8 takes
     the pass's shift and the spine kernel's offsets, as a radix pass
-    launches it. Returns max |err| per kernel."""
+    launches it. Then the count= mask-pad and tail at each size
+    (`check_radix_count_kernels`). Returns max |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     err = {name: 0 for name in RADIX_KERNELS}
+    err.update(check_radix_count_kernels([n for n, _ in sizes], device))
     for n, extra in sizes:
         for block, bits, hi, shifts in _radix_cases(extra):
             cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
@@ -495,6 +520,59 @@ def check_radix_kernels(sizes=RADIX_CHECK_SIZES,
                                 "its plain version")
                     del keys, vals, got7, want7, got_sp, want_sp, got8, \
                         want8, args8
+    return err
+
+
+def count_cases(n: int) -> tuple[int, ...]:
+    """Counts below 0, inside the first block, inside the last, the main
+    path's, at n and past it."""
+    return (-3, 0, 1, 4095, 4096, path_count(n), n - 999, n, n + 5)
+
+
+def check_radix_count_kernels(sizes, device="cuda") -> dict[str, int]:
+    """The count= mask-pad and tail kernels against their plain versions
+    on the same seeded inputs (keys with genuine 0xFFFFFFFF words), keys
+    and key-value, at each n of `sizes` padded to the default block and on
+    a view one word in (n - 1 keys, not 16-byte aligned), over
+    `count_cases`. The tail restores into a seeded buffer, as into the
+    last pass's output. Returns max |err| per kernel."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 9)
+    err = dict.fromkeys(RADIX_COUNT_KERNELS, 0)
+    for n in sizes:
+        size = round_up(n, RADIX.block)
+        base_k, base_v = _radix_inputs(n, None, gen, device)
+        base_k.view(torch.int32)[::97] = -1  # genuine 0xFFFFFFFF
+        for offset in (0, 1):
+            m = n - offset
+            keys = base_k[offset:]
+            for kv in (False, True):
+                vals = base_v[offset:] if kv else None
+                for count in count_cases(m):
+                    cnt = torch.tensor(count, device=device)
+                    got = radix.mask_pad(keys, vals, cnt, size)
+                    want = radix.mask_pad_plain(keys, vals, cnt, size)
+                    if not kv:
+                        got, want = (got,), (want,)
+                    buf = torch.randint(
+                        -(1 << 31), 1 << 31, (size,), generator=gen,
+                        device=device, dtype=torch.int32).view(torch.uint32)
+                    want_t = radix.restore_tail_plain(buf.clone(), keys, cnt)
+                    got_t = radix.restore_tail(buf, keys, cnt)
+                    sync(device)
+                    for name, e in (("mask_pad", _max_abs_err(got, want)),
+                                    ("restore_tail",
+                                     _max_abs_err((got_t,), (want_t,)))):
+                        err[name] = max(err[name], e)
+                        log(f"[kernel] n={m} {name} "
+                            f"{'kv' if kv else 'keys'} count={count} "
+                            f"aligned={offset == 0} max_abs_err={e}")
+                        if e != 0:
+                            raise AssertionError(
+                                f"{name} n={m} count={count} offset="
+                                f"{offset}: the kernel differs from its "
+                                "plain version")
+                    del got, want, buf, want_t, got_t
+        del base_k, base_v
     return err
 
 
@@ -595,14 +673,16 @@ def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
 def check_backend_launches(backend: str, got: dict[str, int],
                            config: SortConfig, what: str) -> None:
     """One sort's launches against the backend that ran it: radix launches
-    K7, the spine and K8 exactly num_passes times each and no network
-    kernel; the
+    K7, the spine and K8 exactly num_passes times each, the count= pad and
+    tail once each or not at all, and no network kernel; the
     network launches network kernels and no radix kernel; the reference
     backend launches no kernel."""
     net = sum(got.get(k, 0) for k in NETWORK_KERNELS + MERGE_KERNELS)
     rad = {k: got.get(k, 0) for k in RADIX_KERNELS}
-    ok = {"radix": net == 0 and set(rad.values()) == {config.num_passes},
-          "network": net > 0 and not any(rad.values()),
+    cnt = {got.get(k, 0) for k in RADIX_COUNT_KERNELS}
+    ok = {"radix": net == 0 and set(rad.values()) == {config.num_passes}
+          and cnt in ({0}, {1}),
+          "network": net > 0 and not any(rad.values()) and cnt == {0},
           "reference": not any(got.values())}[backend]
     if not ok:
         raise AssertionError(f"{what}: the {backend} backend launched {got}")
@@ -702,7 +782,7 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
     wk, wv = want("stable max", lambda: _stable_oracle(mk, vals))
     _expect(gk, wk, f"{tag}stable kv with 0xFFFFFFFF keys, keys")
     _expect(gv, wv, f"{tag}stable kv with 0xFFFFFFFF keys, values")
-    count = n - n // 11 - 12345
+    count = path_count(n)
     cnt = torch.tensor(count, device=device)
 
     def prefix_sorted():
@@ -848,7 +928,7 @@ def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
     _expect64(gk, keys[:m][o], f"{tag}u64 stable kv ragged, keys")
     _expect(gv, vals[:m][o], f"{tag}u64 stable kv ragged, values")
 
-    count = n - n // 11 - 12345
+    count = path_count(n)
     cnt = torch.tensor(count, device=device)
     pk, pv = keys[:count], vals[:count]
     _expect64(run("keys", sorter.sort, dk, count=cnt),
@@ -922,7 +1002,18 @@ def bound_ms(rec) -> tuple[float, str]:
     kernel, a merge sort: `merge_ops`). K7: keys (and values) in and out
     plus the histogram out. Spine: the histogram in, the run offsets and
     g out. K8: keys (and values), the histogram and the run offsets in,
-    keys (and values) out."""
+    keys (and values) out. The count= pad: the c keys before the count (and
+    n values) in, the padded buffers out; the tail: the n - c keys past it
+    in and out; c is `path_count`'s, the count of every count= sort timed
+    here (the launch reads its own only on the card)."""
+    if rec["names"][0] == "mask_pad":
+        n = rec["n"]
+        c = path_count(n)
+        return _bound(4 * (c + rec["numel"]) + (
+            4 * (n + rec["numel"]) if rec["key_value"] else 0), 0)
+    if rec["names"][0] == "restore_tail":
+        n = rec["numel"]
+        return _bound(8 * (n - path_count(n)), 0)
     if rec["names"][0] == "spine":
         entries = rec["nblocks"] * rec["radix"]
         return _bound(4 * (2 * entries + rec["radix"]),
@@ -973,6 +1064,17 @@ def plain_ms(rec) -> float:
 
         def plain():
             k8.spine_plain(hist)
+    elif rec["names"][0] in RADIX_COUNT_KERNELS:
+        m = rec.get("n", n)
+        keys = _u32_zeros(m)
+        vals = _u32_zeros(m) if rec.get("key_value") else None
+        cnt = torch.tensor(path_count(m), device="cuda")
+
+        def plain():
+            if rec["names"][0] == "mask_pad":
+                radix.mask_pad_plain(keys, vals, cnt, n)
+            else:
+                radix.restore_tail_plain(_u32_zeros(m), keys, cnt)
     elif rec["names"][0] in RADIX_KERNELS:
         cfg, kv = rec["config"], rec["key_value"]
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -1049,14 +1151,15 @@ def library_ms(rec) -> float:
 
 def path_sorts(n: int = N):
     """The main path's sorts at n, as closures for timing: the network's
-    five, and the radix and reference backends' keys, stable kv and keys
+    five, the radix backend's keys, stable kv, keys count= and stable kv
+    count=, and the reference backend's keys, stable kv and keys
     count=."""
     keys = to_dev(datagen.generate_keys(n, seed=SEED), "cuda")
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     sorter = vrs.Sorter(n, config=NETWORK)
     rsorter = vrs.Sorter(n, config=RADIX)
     ref = vrs.Sorter(n, config=REFERENCE)
-    cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
+    cnt = torch.tensor(path_count(n), device="cuda")
     sorts = {
         "keys": lambda: sorter.sort(keys),
         "stable_kv": lambda: sorter.sort_key_value(keys, vals),
@@ -1068,6 +1171,8 @@ def path_sorts(n: int = N):
         "radix_keys": lambda: rsorter.sort(keys),
         "radix_stable_kv": lambda: rsorter.sort_key_value(keys, vals),
         "radix_keys_count": lambda: rsorter.sort(keys, count=cnt),
+        "radix_stable_kv_count": lambda: rsorter.sort_key_value(
+            keys, vals, count=cnt),
         "reference_keys": lambda: ref.sort(keys),
         "reference_stable_kv": lambda: ref.sort_key_value(keys, vals),
         "reference_keys_count": lambda: ref.sort(keys, count=cnt),
@@ -1084,7 +1189,7 @@ def path_sorts64(n: int = N):
     vals = to_dev(datagen.generate_values(n, seed=SEED + 1), "cuda")
     sorter = vrs.Sorter(n, key_dtype=torch.uint64, config=NETWORK)
     ref = vrs.Sorter(n, key_dtype=torch.uint64, config=REFERENCE)
-    cnt = torch.tensor(n - n // 11 - 12345, device="cuda")
+    cnt = torch.tensor(path_count(n), device="cuda")
     sorts = {
         "u64_keys": lambda: sorter.sort(keys),
         "u64_stable_kv": lambda: sorter.sort_key_value(keys, vals),
@@ -2326,7 +2431,8 @@ def _path_launches(config: SortConfig, kernels, oracles) -> dict:
     return {k: launches[k] for k in kernels}
 
 
-BACKEND_KERNELS = {"network": NETWORK_KERNELS, "radix": RADIX_KERNELS,
+BACKEND_KERNELS = {"network": NETWORK_KERNELS,
+                   "radix": RADIX_KERNELS + RADIX_COUNT_KERNELS,
                    "reference": ()}
 
 
@@ -2368,7 +2474,8 @@ def main() -> int:
 
     oracles = {}
     launches = _path_launches(NETWORK, NETWORK_KERNELS, oracles)
-    launches.update(_path_launches(RADIX, RADIX_KERNELS, oracles))
+    launches.update(_path_launches(RADIX, BACKEND_KERNELS["radix"],
+                                   oracles))
     _path_launches(REFERENCE, BACKEND_KERNELS["reference"], oracles)
     carries = _path_launches64(oracles)
     auto_launches = _auto_launches(oracles)
@@ -2425,7 +2532,7 @@ def main() -> int:
                     "launches": per[key, c]["n"] // TIMED_RUNS,
                     "bound_share": per[key, c]["bound"] / per[key, c]["ms"]}
                 for c in ("keys", "pairs", "stable")}
-        if key in ("block_sort", "place"):  # the radix sorts by kind
+        if key in ("block_sort", "place", "mask_pad"):  # radix, by kind
             for kind in ("keys", "kv"):
                 row[kind] = {**figures(per[key, kind]),
                              "bound_share": per[key, kind]["bound"]

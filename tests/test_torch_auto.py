@@ -193,12 +193,15 @@ def _run(n, path):
     return kind, [x.numpy() for x in out], names, (k, v, count)
 
 
-def _held_to_backend(backend, names, n):
+def _held_to_backend(backend, names, n, count=False):
     got = set(names)
     if backend == "network":
         assert got and got <= NETWORK
     elif backend == "radix" and n >= radix.MIN_RADIX_N:
-        assert sorted(names) == sorted(list(RADIX) * 4)  # 4 8-bit passes
+        # 4 8-bit passes; a count= sort's mask-pad before them and its
+        # tail after
+        edges = ["mask_pad", "restore_tail"] if count else []
+        assert sorted(names) == sorted(list(RADIX) * 4 + edges)
     else:  # the reference, and radix below MIN_RADIX_N, launch nothing
         assert not names
 
@@ -233,7 +236,7 @@ def test_routing_by_kind_matches_numpy(monkeypatch, path):
     _route(monkeypatch)
     n = radix.MIN_RADIX_N
     kind, got, names, (k, v, count) = _run(n, path)
-    _held_to_backend(ROUTE[kind], names, n)
+    _held_to_backend(ROUTE[kind], names, n, count="count" in path)
     m = count if "count" in path else n
     o = np.argsort(k[:m], kind="stable")
     np.testing.assert_array_equal(got[0], np.concatenate([k[:m][o], k[m:]]))

@@ -336,6 +336,69 @@ def test_cuda_radix_sorter_full_size_matches_numpy(cuda_device):
         np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
 
 
+MASK_COUNTS = (-3, 0, 1, 4095, 4096, "n-999", "n", "n+5")
+
+
+def _as_i32(*ts):
+    return [t.view(torch.int32) for t in ts]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [False, True], ids=["keys", "kv"])
+@pytest.mark.parametrize("n", [radix.MIN_RADIX_N + 17, 1 << 25])
+def test_cuda_mask_pad_and_restore_match_plain(cuda_device, n, kv):
+    """The count= pad (`mask_pad`) and tail (`restore_tail`) kernels
+    bitwise equal to their plain versions over every count, on 16-byte
+    aligned inputs and on views one word in (keys[1:]), which are not."""
+    block = SortConfig().block
+    size = -(-n // block) * block
+    k = _u32(n + 1, 31, 1 << 10)
+    k[::61] = 0xFFFFFFFF
+    base_k = torch.from_numpy(k).to(cuda_device)
+    base_v = torch.from_numpy(_u32(n + 1, 32)).to(cuda_device)
+    for offset in (0, 1):
+        keys = base_k[offset:offset + n]
+        vals = base_v[offset:offset + n] if kv else None
+        assert (keys.data_ptr() % 16 == 0) == (offset == 0)
+        for count in MASK_COUNTS:
+            count = {"n-999": n - 999, "n": n, "n+5": n + 5}.get(count,
+                                                                  count)
+            cnt = torch.tensor(count, device=cuda_device)
+            got = radix.mask_pad(keys, vals, cnt, size)
+            want = radix.mask_pad_plain(keys, vals, cnt, size)
+            got, want = (got, want) if kv else ((got,), (want,))
+            for g, w in zip(_as_i32(*got), _as_i32(*want)):
+                assert torch.equal(g, w), (offset, count)
+            buf = torch.from_numpy(_u32(size, 33)).to(cuda_device)
+            want_t = radix.restore_tail_plain(buf.clone(), keys, cnt)
+            got_t = radix.restore_tail(buf, keys, cnt)
+            assert got_t.data_ptr() == buf.data_ptr()  # in place
+            assert torch.equal(*_as_i32(got_t, want_t)), (offset, count)
+
+
+@pytest.mark.cuda
+def test_cuda_count_sort_holds_what_the_plain_sort_holds(cuda_device):
+    """A 2^25 key-value count= sort on radix raises the allocator's peak
+    exactly as much as the same sort without a count: the mask-pad's
+    buffers are the passes' first, and no mask is held."""
+    n = 1 << 25
+    s = vrs.Sorter(n, config=SortConfig(backend="radix"))
+    dk = torch.from_numpy(_u32(n, 34)).to(cuda_device)
+    dv = torch.from_numpy(_u32(n, 35)).to(cuda_device)
+    cnt = torch.tensor(n, device=cuda_device)
+
+    def rise(**kw):
+        s.sort_key_value(dk, dv, **kw)  # built and warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = s.sort_key_value(dk, dv, **kw)
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+    assert rise(count=cnt) == rise()
+
+
 @pytest.mark.cuda
 def test_cuda_unaligned_buffer_is_refused(cuda_device):
     k = torch.zeros(1 << 12, dtype=torch.int32,

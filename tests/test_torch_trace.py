@@ -19,6 +19,8 @@ from vulkan_radix_sort_tpu_torch.utils import timing
 
 N = radix.MIN_RADIX_N
 RADIX = SortConfig(backend="radix")
+RADIX_PASS = ("block_sort", "spine", "place")
+COUNT_KERNELS = ("mask_pad", "restore_tail")
 
 
 def _u32(n: int, seed: int, dtype=np.uint32) -> torch.Tensor:
@@ -60,7 +62,12 @@ def test_one_root_span_a_call_shared_below(kind):
     assert all(x["root"] == root["id"] for x in timer.spans)
     assert all(x["parent"] == root["id"] for x in timer.spans[1:])
     assert timer.records
-    assert all(r["root"] == root["id"] and r["span"] == root["id"]
+    # the passes' launches lie below the root alone; a count= call's pad
+    # and tail kernels inside its count_mask spans
+    spans = {x["id"]: x for x in timer.spans}
+    assert all(r["root"] == root["id"] for r in timer.records)
+    assert all(r["span"] == root["id"] if r["names"][0] not in COUNT_KERNELS
+               else spans[r["span"]]["name"] == "vrs.count_mask"
                for r in timer.records)
     for x in timer.spans:
         assert root["start_ns"] <= x["start_ns"] <= x["end_ns"] \
@@ -69,15 +76,21 @@ def test_one_root_span_a_call_shared_below(kind):
 
 
 def test_count_call_spans_the_masks_twice_and_the_pad_once():
+    """A radix count= call: the pad is the mask's kernel, in the first
+    count_mask span, and the tail's kernel is in the second."""
     timer = _kv_count_call(_sorter())
     names = [x["name"] for x in timer.spans]
-    assert names == ["vrs.sort_key_value", "vrs.count_mask", "vrs.pad",
+    assert names == ["vrs.sort_key_value", "vrs.count_mask",
                      "vrs.count_mask"]
-    # one after another on the host's clock; the launches lie between the
-    # pad and the second mask, below the root alone
+    # one after another on the host's clock; the passes' launches lie
+    # between the two masks, below the root alone
     ends = [(x["start_ns"], x["end_ns"]) for x in timer.spans[1:]]
     assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
-    assert {r["span"] for r in timer.records} == {timer.spans[0]["id"]}
+    root, pad, tail = (x["id"] for x in timer.spans)
+    assert [(r["names"][0], r["span"]) for r in timer.records] == (
+        [("mask_pad", pad)]
+        + [(k, root) for k in RADIX_PASS] * RADIX.num_passes
+        + [("restore_tail", tail)])
 
 
 @pytest.mark.parametrize("wide", [False, True])
@@ -132,6 +145,10 @@ def test_one_backend_count_a_call(call, backend, n, served):
         CALLS[call](s, k, v)
     assert timer.counts == {f"vrs.backend.{served}": 2}
     assert (len(timer.records) > 0) == (served != "reference")
+    # a radix count= call launches the pad's and the tail's kernel once
+    masked = served == "radix" and call.endswith("_count")
+    names = [r["names"][0] for r in timer.records]
+    assert [names.count(k) for k in COUNT_KERNELS] == [2 * masked] * 2
 
 
 def test_the_adaptive_fast_path_counts_itself():
@@ -184,9 +201,11 @@ def test_spans_are_host_ranges_on_the_profiler_timeline():
     k, v = _u32(N, 11), _u32(N, 12)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         s.sort_key_value(k, v, count=torch.tensor(N - 1))
+        s.sort(k)  # no count: the plain pad's span
     names = {e.name for e in prof.events()}
     assert {"vrs.sort_key_value", "vrs.count_mask", "vrs.pad"} <= names
-    # the root encloses the ops the call ran
+    # the root encloses the ops the call ran: the count= call's mask and
+    # tail (their plain versions on the CPU)
     root = next(e for e in prof.events() if e.name == "vrs.sort_key_value")
     where = [e for e in prof.events() if e.name == "aten::where"]
     assert where and all(root.time_range.start <= e.time_range.start

@@ -14,14 +14,17 @@
 //
 // A pass is three launches with nothing between them, K7 -> spine -> K8,
 // as the reference's upsweep -> spine -> downsweep
-// (src/shader/{upsweep,spine,downsweep}.slang). K7 sorts each `block`-key
-// block stably by the digit (key >> shift) & (radix - 1) and writes the
-// block's radix-bin histogram. The spine turns the (nblocks, radix)
-// histograms into the global exclusive digit offsets g and each
-// (block, digit) run's output offset, offsets[p][d] = g[d] + the sum of
-// hist[q][d] over q < p: the reference spine's two halves. K8 then copies
-// element i of block p, of digit d, to offsets[p][d] + i - (start of d's
-// run in the block).
+// (src/shader/{upsweep,spine,downsweep}.slang). A count= sort adds one
+// launch before the passes, mask_pad_kernel (the pad, with keys at or past
+// the count read on the card written as 0xFFFFFFFF), and one after them,
+// restore_tail_kernel (the masked tail's keys back in place). K7 sorts
+// each `block`-key block stably by the digit (key >> shift) & (radix - 1)
+// and writes the block's radix-bin histogram. The spine turns the
+// (nblocks, radix) histograms into the global exclusive digit offsets g
+// and each (block, digit) run's output offset, offsets[p][d] = g[d] + the
+// sum of hist[q][d] over q < p: the reference spine's two halves. K8 then
+// copies element i of block p, of digit d, to offsets[p][d] + i - (start
+// of d's run in the block).
 //
 // What changed from the TPU: there, ranks came from one-hot matmuls on the
 // MXU (no atomics, no ballots), and placement walked the blocks in order on
@@ -99,6 +102,9 @@ constexpr int kSmemBytes = 232448;
 constexpr int kMinBlock = 512;    // RADIX_THREADS in config.py
 constexpr int kMaxBlock = 16384;  // MAX_RADIX_BLOCK in config.py
 static_assert(kMinBlock % kPlaceTile == 0, "a K8 tile lies in one block");
+constexpr int kCopyThreads = 256;    // mask_pad and restore_tail
+constexpr int kCopyBlocksPerSm = 8;  // 2048 threads: a full SM
+constexpr int kCopyVecs = 2;         // loads a thread has in flight
 
 // In-place exclusive scan of a[0, n), n <= blockDim.x and n <= 1024, by the
 // whole block. `wsum` holds 32 ints of scratch.
@@ -599,6 +605,110 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
+// The live prefix of a count= sort: the count, read on the card, clamped
+// to [0, n] (the `arange(n) < count` of the plain version).
+__device__ __forceinline__ long long live_count(const long long* count,
+                                                long long n) {
+  const long long c = *count;
+  return c < 0 ? 0 : c > n ? n : c;
+}
+
+// Words i .. i + 3 of src (i a multiple of 4), those at or past `end` not
+// read and given as 0: one 16-byte load where src is 16-byte aligned and
+// the four lie before `end`, else one load a word (a caller's view, such
+// as x[1:], need not be aligned).
+__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ src,
+                                       long long i, long long end,
+                                       bool vec) {
+  if (vec && i + 4 <= end)
+    return __ldcs(reinterpret_cast<const uint4*>(src + i));
+  uint32_t w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) w[j] = i + j < end ? __ldcs(src + i + j) : 0u;
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The count= pad of the radix path, in one pass over the input: keys
+// x[i] = keys[i] for i < c and 0xFFFFFFFF for c <= i < size, values
+// v[i] = values[i] for i < n and 0 up to size, c the live count. Each
+// thread stores kCopyVecs 16-byte vectors of each output an iteration
+// (size is a block multiple and the outputs are fresh buffers, so they
+// are aligned), loading all of them first; keys past c are not read.
+template <bool KV>
+__global__ void __launch_bounds__(kCopyThreads)
+    mask_pad_kernel(const long long* __restrict__ count, long long n,
+                    long long size, const uint32_t* __restrict__ keys,
+                    const uint32_t* __restrict__ vals,
+                    uint32_t* __restrict__ out_k,
+                    uint32_t* __restrict__ out_v) {
+  const long long c = live_count(count, n);
+  const bool kvec = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  const bool vvec = KV && (reinterpret_cast<uintptr_t>(vals) & 15) == 0;
+  const long long step = 4LL * blockDim.x;  // words between a thread's vectors
+  const long long stride = step * kCopyVecs * gridDim.x;
+  for (long long base = step * kCopyVecs * blockIdx.x + 4LL * threadIdx.x;
+       base < size; base += stride) {
+    uint4 k[kCopyVecs], v[KV ? kCopyVecs : 1];
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) {
+      const long long i = base + u * step;
+      k[u] = load4(keys, i, c, kvec);
+      if constexpr (KV) v[u] = load4(vals, i, n, vvec);
+    }
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u) {
+      const long long i = base + u * step;
+      if (i >= size) break;
+      if (i + 4 > c) {
+        k[u].x = i < c ? k[u].x : ~0u;
+        k[u].y = i + 1 < c ? k[u].y : ~0u;
+        k[u].z = i + 2 < c ? k[u].z : ~0u;
+        k[u].w = i + 3 < c ? k[u].w : ~0u;
+      }
+      reinterpret_cast<uint4*>(out_k)[i >> 2] = k[u];
+      if constexpr (KV) reinterpret_cast<uint4*>(out_v)[i >> 2] = v[u];
+    }
+  }
+}
+
+// After the last pass of a count= sort: x[i] = keys[i] for c <= i < n, in
+// place. The stable passes leave the masked tail, 0xFFFFFFFF keys behind
+// every genuine one, at [c, n) in input order, so its values are already
+// right and only its keys come back. Every thread exits at once when
+// c == n.
+__global__ void __launch_bounds__(kCopyThreads)
+    restore_tail_kernel(const long long* __restrict__ count, long long n,
+                        const uint32_t* __restrict__ keys,
+                        uint32_t* __restrict__ out) {
+  const long long c = live_count(count, n);
+  const long long step = (long long)gridDim.x * blockDim.x;
+  for (long long i = c + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       i < n; i += kCopyVecs * step) {
+    uint32_t w[kCopyVecs];
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u)
+      w[u] = i + u * step < n ? __ldcs(keys + i + u * step) : 0u;
+#pragma unroll
+    for (int u = 0; u < kCopyVecs; ++u)
+      if (i + u * step < n) out[i + u * step] = w[u];
+  }
+}
+
+// Thread blocks of a mask_pad or restore_tail launch: enough to fill every
+// SM (kCopyBlocksPerSm of kCopyThreads), and no more than `words` need.
+int copy_grid(long long words, unsigned* grid) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return int(e);
+  const long long per = 4LL * kCopyThreads * kCopyVecs;
+  const long long need = (words + per - 1) / per;
+  const long long full = (long long)sms * kCopyBlocksPerSm;
+  *grid = unsigned(need < 1 ? 1 : need < full ? need : full);
+  return int(cudaSuccess);
+}
+
 // Every power of two from kMinBlock to kMaxBlock, 4- or 8-bit digits.
 bool bad_geometry(long long nblocks, int block, int bits) {
   return nblocks < 0 || nblocks > 0x7fffffffLL || (bits != 4 && bits != 8) ||
@@ -737,6 +847,51 @@ int vrs_spine(const void* hist, void* g_row, void* offsets,
                                 static_cast<const int*>(hist),
                                 static_cast<int*>(g_row),
                                 static_cast<int*>(offsets), nblocks, bits));
+}
+
+// The count= pad: out_k (and out_v), `size` words each, from the n keys
+// (and values) and the int64 count on the card (never read on the host).
+// The outputs must be 16-byte aligned and `size` a multiple of 4 at least
+// n; the inputs may sit anywhere.
+int vrs_mask_pad(int kv, const void* count, long long n, long long size,
+                 const void* keys, const void* vals, void* out_k,
+                 void* out_v, void* stream) {
+  if (n < 0 || size < n || size % 4 ||
+      (reinterpret_cast<uintptr_t>(out_k) & 15) ||
+      (kv && (reinterpret_cast<uintptr_t>(out_v) & 15)))
+    return int(cudaErrorInvalidValue);
+  if (size == 0) return int(cudaSuccess);
+  unsigned grid = 0;
+  const int e = copy_grid(size, &grid);
+  if (e != int(cudaSuccess)) return e;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cnt = static_cast<const long long*>(count);
+  auto k = static_cast<const uint32_t*>(keys);
+  auto v = static_cast<const uint32_t*>(vals);
+  auto ok = static_cast<uint32_t*>(out_k);
+  auto ov = static_cast<uint32_t*>(out_v);
+  if (kv)
+    mask_pad_kernel<true><<<grid, kCopyThreads, 0, st>>>(cnt, n, size, k, v,
+                                                         ok, ov);
+  else
+    mask_pad_kernel<false><<<grid, kCopyThreads, 0, st>>>(cnt, n, size, k,
+                                                          v, ok, ov);
+  return int(cudaGetLastError());
+}
+
+// After a count= sort: out[i] = keys[i] for count <= i < n, in place.
+int vrs_restore_tail(const void* count, long long n, const void* keys,
+                     void* out, void* stream) {
+  if (n < 0) return int(cudaErrorInvalidValue);
+  if (n == 0) return int(cudaSuccess);
+  unsigned grid = 0;
+  const int e = copy_grid(n, &grid);
+  if (e != int(cudaSuccess)) return e;
+  restore_tail_kernel<<<grid, kCopyThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(count), n,
+      static_cast<const uint32_t*>(keys), static_cast<uint32_t*>(out));
+  return int(cudaGetLastError());
 }
 
 }  // extern "C"

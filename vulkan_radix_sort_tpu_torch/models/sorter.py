@@ -254,9 +254,6 @@ class Sorter:
                 raise ValueError(f"values live on {values.device}, the "
                                  f"sorter on {self.device}")
 
-    def _live(self, n: int, count: torch.Tensor) -> torch.Tensor:
-        return torch.arange(n, device=self.device) < count
-
     # -- public API --------------------------------------------------------
 
     def sort(self, keys: torch.Tensor, count=None) -> torch.Tensor:
@@ -277,21 +274,21 @@ class Sorter:
                                 else slow(u))
         if self.wide:
             return self._decode(self._sort64(u, count))
-        cnt = bitonic.count_tensor(count, self.device)
+        cnt = bitops.count_tensor(count, self.device)
         _served(self.backend, u.numel())
         if self.backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
+        if self.backend == "radix":  # the count masks in the pad's kernel
+            return self._decode(radix.sort_u32(u, count=cnt,
+                                               config=self.config))
         with timing.span("vrs.count_mask"):
-            live = self._live(u.numel(), cnt)
+            live = bitops.in_range(u, cnt)
             # The first `count` slots of the masked keys-only sort are
             # exactly the sorted prefix: sentinels and genuine 0xFFFFFFFF
             # keys are indistinguishable in the output, so no index carry
             # is needed.
             masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-        if self.backend == "network":
-            k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
-        else:  # radix sorts every pass in full: count only masks
-            k = radix.sort_u32(masked, config=self.config)
+        k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
         with timing.span("vrs.count_mask"):
             k = bitops.select_u32(live, k, u)
         return self._decode(k)
@@ -353,29 +350,28 @@ class Sorter:
         if self.wide:
             k, v = self._sort_pairs64(u, values, count, stable)
             return self._decode(k), v
-        cnt = bitonic.count_tensor(count, self.device)
+        cnt = bitops.count_tensor(count, self.device)
         backend = self._backend_pairs(stable)
         _served(backend, u.numel())
         if backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
             return self._decode(k), v
+        if backend == "radix":  # stable either way; it masks in the pad
+            k, v = radix.sort_pairs_u32(u, values, count=cnt,
+                                        config=self.config)
+            return self._decode(k), v
         with timing.span("vrs.count_mask"):
-            live = self._live(u.numel(), cnt)
+            live = bitops.in_range(u, cnt)
             masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-            # radix is stable either way: the masked tail, behind every
-            # genuine 0xFFFFFFFF key in input order, stays behind it. The
-            # non-stable network: mask values too, making the masked tail
-            # the lexicographic maximum, so genuine (max key, max value)
-            # pairs are bitwise interchangeable with it and the prefix
-            # stays exact
-            mv = values if stable or backend == "radix" else \
+            # non-stable: mask values too, making the masked tail the
+            # lexicographic maximum, so genuine (max key, max value) pairs
+            # are bitwise interchangeable with it and the prefix stays
+            # exact
+            mv = values if stable else \
                 bitops.select_u32(live, values, bitops.max_like_u32(values))
-        if backend == "radix":
-            k, v = radix.sort_pairs_u32(masked, values, config=self.config)
-        else:
-            k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
-                                          chunk=self.config.chunk_carry,
-                                          stable=stable)
+        k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
+                                      chunk=self.config.chunk_carry,
+                                      stable=stable)
         with timing.span("vrs.count_mask"):
             k = bitops.select_u32(live, k, u)
             v = bitops.select_u32(live, v, values)
@@ -391,7 +387,7 @@ class Sorter:
         32-bit keys, genuine maximum keys are bitwise interchangeable with
         the mask in the output, so no index carry is needed."""
         chunk = self.config.chunk_carry
-        cnt = None if count is None else bitonic.count_tensor(count,
+        cnt = None if count is None else bitops.count_tensor(count,
                                                               self.device)
         _served(self.backend, u.numel())
         if self.backend == "reference":
@@ -402,7 +398,7 @@ class Sorter:
                                             stable=False)
             return bitops.merge_u64(hi, lo)
         with timing.span("vrs.count_mask"):
-            live = self._live(u.numel(), cnt)
+            live = bitops.in_range(u, cnt)
             masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
         k = bitops.merge_u64(*bitonic.sort_pairs_u32(
             *bitops.split_u64(masked), cnt, chunk=chunk, stable=False))
@@ -414,7 +410,7 @@ class Sorter:
         """Key-value sort of encoded uint64 keys: W4_BIG (stable) or W3 on
         the network; `count` masks as `sort_key_value` does."""
         chunk = self.config.chunk_carry
-        cnt = None if count is None else bitonic.count_tensor(count,
+        cnt = None if count is None else bitops.count_tensor(count,
                                                               self.device)
         backend = self._backend_pairs(stable)
         _served(backend, u.numel())
@@ -426,7 +422,7 @@ class Sorter:
                                                chunk=chunk, stable=stable)
             return bitops.merge_u64(hi, lo), v
         with timing.span("vrs.count_mask"):
-            live = self._live(u.numel(), cnt)
+            live = bitops.in_range(u, cnt)
             masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
             # non-stable: the masked tail is the lexicographic maximum, as
             # in sort_key_value

@@ -40,7 +40,7 @@ import torch
 from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
 from . import bitonic_kernels as bk
 from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, log2
-from .bitops import check_u32, pad_u32
+from .bitops import check_u32, count_tensor, pad_u32
 from ..utils import timing
 
 # Elements a fused-rounds group may hold, on top of each carry's
@@ -146,20 +146,6 @@ def _sort_padded(arrs, mode, np2: int, C: int, n: int, count=None) -> None:
             gstart = (torch.arange(np2 // C, device=dev) >> r << r) * C
             local_valid = (gstart < count).to(torch.int32)
         bk.local(arrs, mode, C, r, groups(r) << r, local_valid)
-
-
-def count_tensor(count, device: torch.device) -> torch.Tensor | None:
-    """`count` (None, an int or a tensor on `device`) as a 0-d int64
-    tensor on `device`; a tensor given by the caller is never read on the
-    host and never moved."""
-    if count is None:
-        return None
-    if isinstance(count, torch.Tensor):
-        if count.device != device:
-            raise ValueError(f"count lives on {count.device}, the keys "
-                             f"on {device}")
-        return count.reshape(()).to(torch.int64)
-    return torch.tensor(int(count), dtype=torch.int64, device=device)
 
 
 def _checked_chunk(chunk: int, mode) -> int:

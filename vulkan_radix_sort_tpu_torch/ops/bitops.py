@@ -154,6 +154,26 @@ def pad_u32(x: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return out
 
 
+def count_tensor(count, device: torch.device) -> torch.Tensor | None:
+    """`count` (None, an int or a tensor on `device`) as a 0-d int64
+    tensor on `device`; a tensor given by the caller is never read on the
+    host and never moved."""
+    if count is None:
+        return None
+    if isinstance(count, torch.Tensor):
+        if count.device != device:
+            raise ValueError(f"count lives on {count.device}, the keys "
+                             f"on {device}")
+        return count.reshape(()).to(torch.int64)
+    return torch.tensor(int(count), dtype=torch.int64, device=device)
+
+
+def in_range(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """The `count=` prefix of keys as a bool mask, `arange(n) < count`,
+    on the card without reading the count."""
+    return torch.arange(keys.numel(), device=keys.device) < count
+
+
 VECTOR_BYTES = 16  # the kernels load and store 16-byte vectors
 
 

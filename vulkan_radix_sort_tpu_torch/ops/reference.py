@@ -23,7 +23,8 @@ from __future__ import annotations
 import torch
 
 from .bitops import (decode_i32, decode_i64, encode_i32, encode_i64,
-                     max_like_u32, max_like_u64, select_u32, select_u64)
+                     in_range, max_like_u32, max_like_u64, select_u32,
+                     select_u64)
 
 # uint dtype -> (to the signed view with the same order, and back)
 _SIGNED = {torch.uint32: (decode_i32, encode_i32),
@@ -55,14 +56,10 @@ def sort_pairs(keys: torch.Tensor, values: torch.Tensor):
     return k, _take(values, perm)
 
 
-def _in_range(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
-    return torch.arange(keys.numel(), device=keys.device) < count
-
-
 def sort_keys_count(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """Sort only the first `count` keys; the tail stays untouched. `count`
     is a 0-d tensor on the keys' device and is never read on the host."""
-    live = _in_range(keys, count)
+    live = in_range(keys, count)
     masked = select_u32(live, keys, max_like_u32(keys))
     return select_u32(live, sort_keys(masked), keys)
 
@@ -72,7 +69,7 @@ def sort_pairs_count(keys: torch.Tensor, values: torch.Tensor,
     """Stable key-value sort of the first `count` pairs; tails untouched.
     The masked tail holds 0xFFFFFFFF keys at the largest indices, so the
     stable sort leaves it behind every genuine 0xFFFFFFFF key."""
-    live = _in_range(keys, count)
+    live = in_range(keys, count)
     masked = select_u32(live, keys, max_like_u32(keys))
     k, v = sort_pairs(masked, values)
     return select_u32(live, k, keys), select_u32(live, v, values)
@@ -92,7 +89,7 @@ def sort_pairs64(keys: torch.Tensor, values: torch.Tensor):
 def sort_keys64_count(keys: torch.Tensor,
                       count: torch.Tensor) -> torch.Tensor:
     """`sort_keys_count` for uint64 keys."""
-    live = _in_range(keys, count)
+    live = in_range(keys, count)
     masked = select_u64(live, keys, max_like_u64(keys))
     return select_u64(live, sort_keys64(masked), keys)
 
@@ -100,7 +97,7 @@ def sort_keys64_count(keys: torch.Tensor,
 def sort_pairs64_count(keys: torch.Tensor, values: torch.Tensor,
                        count: torch.Tensor):
     """`sort_pairs_count` for uint64 keys."""
-    live = _in_range(keys, count)
+    live = in_range(keys, count)
     masked = select_u64(live, keys, max_like_u64(keys))
     k, v = sort_pairs64(masked, values)
     return select_u64(live, k, keys), select_u32(live, v, values)

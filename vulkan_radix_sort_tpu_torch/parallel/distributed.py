@@ -74,10 +74,9 @@ import torch.multiprocessing as mp
 
 from ..config import MIN_CHUNK, SortConfig, cdiv, default_config
 from ..ops import bitonic, reference
-from ..ops.bitonic import count_tensor
 from ..ops.bitonic_kernels import KEYS, log2
-from ..ops.bitops import (check_u32, max_like_u32, pad_u32, select_u32,
-                          widen_u32)
+from ..ops.bitops import (check_u32, count_tensor, max_like_u32, pad_u32,
+                          select_u32, widen_u32)
 
 _SENTINEL_I32 = -1  # 0xFFFFFFFF as an int32 bit pattern
 _FILLS = (_SENTINEL_I32, 0)  # key and value fill, as int32 bit patterns

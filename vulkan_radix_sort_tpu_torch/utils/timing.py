@@ -9,14 +9,15 @@ directly. A time is only ever taken on a card: with none present
 
 `LaunchTimer` records every kernel launch, span and count made while it is
 active. The kernels' wrappers (`bitonic_kernels.run`,
-`block_sort.block_sort`, `stream_place.spine`, `stream_place.stream_place`)
-call `launch` around each launch, or for CPU buffers around the plain
-version that stands in for it; `launch` records it in every active
-LaunchTimer: its counter names, the arguments that size its work, the
-innermost open span, and on a CUDA device a pair of CUDA events on the
-device's current stream around it. On the CPU a record has no events, so
-the launch plan can be checked without a card: a record with events is a
-kernel launch, one without a plain stand-in.
+`block_sort.block_sort`, `stream_place.spine`, `stream_place.stream_place`,
+`radix.mask_pad`, `radix.restore_tail`) call `launch` around each launch,
+or for CPU buffers around the plain version that stands in for it;
+`launch` records it in every active LaunchTimer: its counter names, the
+arguments that size its work, the innermost open span, and on a CUDA
+device a pair of CUDA events on the device's current stream around it.
+On the CPU a record has no events, so the launch plan can be checked
+without a card: a record with events is a kernel launch, one without a
+plain stand-in.
 
 `span` bounds a stretch of the program's own work (the entry points, the
 `count=` masks, the pad) on the host's clock, and `count` counts an event
