@@ -25,22 +25,31 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      two digits at every shift and one key only, then at 301 default
      blocks (no multiple of K7's resident grid) and at the main path's
      2^25 shapes on uniform keys and two digits, keys and key-value, with
-     a ragged last block of sentinel pads;
+     a ragged last block of sentinel pads; the count= mask-pad and tail
+     at each size, and the 64-bit path's split-pad and gather (uint64 and
+     uint32 keys, end bits 12 to 64, counts, aligned and one word in) at
+     2^20, 301 blocks and 2^25;
   4. main path, once per backend ('network', 'radix', 'reference', then
      'auto', which picks a backend per kind of sort from the sorter's n):
      the public entry points (vrs.sort, Sorter.sort, Sorter.sort_key_value)
      at n = 2^25 and the other shapes below, each bitwise equal to a numpy
-     oracle computed once for all four; each sort's launches, read from
-     a launch recorder, must be those of its kind's backend (radix: K7,
-     the spine and K8 exactly num_passes times; network: network kernels
-     only; reference: none); each backend's run has a launch recorder of
+     oracle computed once for all four, and calls by the low end_bit
+     bits (20 and 16) against numpy's stable order of the masked keys;
+     each sort's launches, read from a launch recorder, must be those of
+     the backend that serves the call (radix: K7, the spine and K8 once a
+     pass, ceil(end_bit / 8) passes, with the count= pad and tail, or on
+     the (word, position) path the split-pad and one gather, two past 32
+     bits; network: network kernels only; reference: none); each
+     backend's run has a launch recorder of
      its own, and every kernel of that backend must have launched; then
      the 64-bit path (uint64, int64 and float64 keys) through the same
      entry points at 2^25, on the network with its launches counted per
      carry (chunk, fused, cross,
-     local and the gate must launch in both w3 and w4_big), and through
-     'auto' (the '[launches] auto' line: the kernels of every backend
-     'auto' picked, 32- and 64-bit, and no other);
+     local and the gate must launch in both w3 and w4_big), on radix, with
+     calls by end_bit 45 (the tile-depth sort of 3D Gaussian splatting),
+     13 and 64, and through 'auto' (the '[launches] auto' line: the
+     kernels of every backend 'auto' picked, 32- and 64-bit, and no
+     other);
   5. times on the card with CUDA events, of sorts that name their
      backend: end to end (network, radix and the reference backend) with
      torch.sort of the sign-flipped signed view as the yardstick, and per
@@ -97,11 +106,13 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      reference backends at 2^14 to 2^25 (keys, kv, kvns), each after
      its correctness gate, one point of the native C++ engine, and the
      sizes from which network and radix beat the reference backend;
-     `[sweep64]`, the same for uint64 keys, network against reference
-     (radix refuses them); `[auto]`, for each key width and sort kind at
-     every swept size, the backend Sorter(n) picks and its ms beside the
-     fastest backend of the sweep, and the engine and cut this run
-     measured beside the constants of models/sorter.py (report only);
+     `[sweep64]`, the same for uint64 keys, radix against reference at
+     end bits 40, 48, 56 and 64 (5 to 8 passes), sorts named
+     `<kind>_e<end_bit>`; `[auto]`, for each key width and sort kind
+     (64-bit: at each end bit) at every swept size, the backend
+     Sorter(n) picks for the call and its ms beside the fastest backend
+     of the sweep, and the engine and cut this run measured beside the
+     constants of models/sorter.py (report only);
  12. profile: one profiling.trace around network keys sorts at 2^25:
      device time by kernel name (K1-K4) and the device's busy share of
      the traced window; then one around a radix keys sort at 2^25, whose
@@ -110,6 +121,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
 Then the `kernels` JSON line (each network row with its 64-bit carries'
 figures under "w3" and "w4_big"; K7 and K8 with their keys and kv
 figures under "keys" and "kv", K8 with the spine's under "spine";
+the 64-bit path's split-pad and gather from the timed 2^25 radix sorts
+of uint64 keys by end_bit 45;
 `launches` counts the launches on the
 path of the kernel's backend, `auto_launches` those on the 'auto'
 path), the card's name and power limit as nvidia-smi gives them, and
@@ -118,6 +131,7 @@ last the {"ok": true, ...} result line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -145,6 +159,7 @@ from vulkan_radix_sort_tpu_torch.bench import harness
 from vulkan_radix_sort_tpu_torch.models import sorter as sorter_mod
 from vulkan_radix_sort_tpu_torch.utils import datagen, profiling, timing
 from vulkan_radix_sort_tpu_torch.utils.timing import time_fn
+from benchmark import roofline_u64
 
 N = 1 << 25          # the reference's headline size
 N_RAGGED = (1 << 24) + 4096
@@ -246,16 +261,29 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
                      "sorter.py:387)",
                      "new: the sorted keys' slots [count, n) back from the "
                      "input, in place; exits at once when count = n"),
+    "split_pad": ("radix u64 split-pad", RADIX_CU,
+                  "none: the JAX radix path sorts 32-bit keys only",
+                  "new: the (word, position) path's first buffers, the "
+                  "low words masked to end_bit and padded (the count "
+                  "masked too) and the positions, 16-byte vectors"),
+    "gather": ("radix u64 gather", RADIX_CU,
+               "none: the JAX radix path sorts 32-bit keys only",
+               "new: by the sorted positions, the high words masked to "
+               "end_bit (hi) or the whole keys and values (out); every "
+               "random load of a thread issued before its stores"),
 }
 # the radix kernels in launch order; the spine is K8's column accumulation
 # (the TPU kernel's own), so the K8 row carries it
 RADIX_KERNELS = ("block_sort", "spine", "place")
 # a radix count= sort's one launch before the passes and one after them
 RADIX_COUNT_KERNELS = ("mask_pad", "restore_tail")
+# the (word, position) path's launch before the passes and its gathers
+RADIX_U64_KERNELS = ("split_pad", "gather")
 MERGE_KERNELS = ("local_gated",)
 NETWORK_KERNELS = tuple(
     k for k in KERNELS
-    if k not in RADIX_KERNELS + RADIX_COUNT_KERNELS + MERGE_KERNELS)
+    if k not in RADIX_KERNELS + RADIX_COUNT_KERNELS + RADIX_U64_KERNELS
+    + MERGE_KERNELS)
 
 
 def log(*a):
@@ -279,9 +307,11 @@ def sync(device) -> None:
 
 
 # Every launch counter name: the network kernels' (`bk.counters`), K7's,
-# the spine's, K8's, and the radix count= pad and tail.
+# the spine's, K8's, the radix count= pad and tail, and the (word,
+# position) path's split-pad and gather.
 LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
-                   "block_sort", "spine", "place", "mask_pad", "restore_tail")
+                   "block_sort", "spine", "place", "mask_pad", "restore_tail",
+                   "split_pad", "gather")
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -296,13 +326,17 @@ LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
 # cap, 10 for keys and 8 for pairs and stable, the shared-memory one in
 # w3 and w4_big; block sort: keys or kv, 4 to 32 keys a thread, 4- or
 # 8-bit digits; placement: keys or kv; spine: one cluster size; the
-# count= mask-pad: keys or kv (the tail's kernel is no template).
+# count= mask-pad: keys or kv (the tail's kernel is no template); the
+# split-pad: 32- or 64-bit keys, with or without records (the high words'
+# width is an argument); the gather: the 16- or 32-bit high words, or the
+# 32- or 64-bit keys from the keys or the records.
 INSTANTIATIONS = {"chunk_kernel": 23, "chunk_merge_kernel": 6,
                   "chunk_wide_kernel": 5, "local_kernel": 34,
                   "cross_kernel": 2, "cross_cols_kernel": 26,
                   "fused_kernel": 24, "fused_wide_kernel": 5,
                   "block_sort_kernel": 16, "place_kernel": 2,
-                  "spine_kernel": 1, "mask_pad_kernel": 2}
+                  "spine_kernel": 1, "mask_pad_kernel": 2,
+                  "split_pad_kernel": 4, "gather_kernel": 5}
 
 
 def build() -> None:
@@ -472,11 +506,14 @@ def check_radix_kernels(sizes=RADIX_CHECK_SIZES,
     shapes (15 or 16 each). The
     spine and K8 take K7's plain output, so their runs are real; K8 takes
     the pass's shift and the spine kernel's offsets, as a radix pass
-    launches it. Then the count= mask-pad and tail at each size
-    (`check_radix_count_kernels`). Returns max |err| per kernel."""
+    launches it. Then the count= mask-pad and tail, and the 64-bit
+    path's split-pad and gather, at each size
+    (`check_radix_count_kernels`, `check_radix_u64_kernels`). Returns max
+    |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
     err = {name: 0 for name in RADIX_KERNELS}
     err.update(check_radix_count_kernels([n for n, _ in sizes], device))
+    err.update(check_radix_u64_kernels([n for n, _ in sizes], device))
     for n, extra in sizes:
         for block, bits, hi, shifts in _radix_cases(extra):
             cfg = SortConfig(backend="radix", digit_bits=bits, block=block)
@@ -576,6 +613,92 @@ def check_radix_count_kernels(sizes, device="cuda") -> dict[str, int]:
     return err
 
 
+U64_END_BITS = {64: (13, 32, 45, 64), 32: (12, 20)}
+
+
+def u64_count_cases(n: int) -> tuple:
+    """No count, counts below 0 and inside the first block, the main
+    path's, n and past it."""
+    return (None, -3, 0, 1, path_count(n), n, n + 5)
+
+
+def check_radix_u64_kernels(sizes, device="cuda") -> dict[str, int]:
+    """The (word, position) path's split-pad and gather kernels against
+    their plain versions on the same seeded inputs: uint64 keys (a quarter
+    with one high word, every 97th the maximum) and uint32 keys, alone and
+    with values (the records), at each n of `sizes` padded to the default
+    block and on a view one word in (n - 1 keys, not 16-byte aligned); the
+    gathers by a seeded permutation of the padded positions (`hi`: every
+    slot, from the split-pad's high words, 16 bits up to end bit 48 and
+    32 above; `out`: the first n, from the keys and the records). At the
+    first n every end bit of `U64_END_BITS` and every count of
+    `u64_count_cases`; at the others (the main path's 2^25 among them)
+    end bits 45 and 64 (uint32: 20), no count and the main path's.
+    Returns max |err| per kernel."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    err = dict.fromkeys(RADIX_U64_KERNELS, 0)
+
+    def check(name, got, want, what):
+        e = _max_abs_err([g.view(torch.int32) for g in got],
+                         [w.view(torch.int32) for w in want])
+        err[name] = max(err[name], e)
+        log(f"[kernel] {name} {what} max_abs_err={e}")
+        if e != 0:
+            raise AssertionError(f"{name} {what}: the kernel differs from "
+                                 "its plain version")
+    for i, n in enumerate(sizes):
+        size = round_up(n, RADIX.block)
+        k64 = torch.randint(-(1 << 63), (1 << 63) - 1, (n,), generator=gen,
+                            device=device, dtype=torch.int64)
+        k64[::4] = (k64[::4] & 0xFFFFFFFF) | (0x2A << 32)
+        k64[::97] = -1
+        vals = torch.randint(-(1 << 31), 1 << 31, (n,), generator=gen,
+                             device=device, dtype=torch.int32).view(
+            torch.uint32)
+        for width, base in ((64, k64.view(torch.uint64)),
+                            (32, k64.to(torch.int32).view(torch.uint32))):
+            end_bits = U64_END_BITS[width] if i == 0 else (
+                (45, 64) if width == 64 else (20,))
+            for offset in (0, 1):
+                keys, m = base[offset:], n - offset
+                counts = (u64_count_cases(m) if i == 0
+                          else (None, path_count(m)))
+                pos = torch.randperm(size, generator=gen, device=device).to(
+                    torch.int32).view(torch.uint32)
+                rec = None
+                for kv in (False, True):
+                    v = vals[offset:] if kv else None
+                    for end_bit, count in itertools.product(end_bits,
+                                                            counts):
+                        cnt = (None if count is None
+                               else torch.tensor(count, device=device))
+                        what = (f"n={m} u{width} kv={kv} end_bit={end_bit} "
+                                f"count={count} aligned={offset == 0}")
+                        got = radix.split_pad(keys, v, cnt, size, end_bit)
+                        want = radix.split_pad_plain(keys, v, cnt, size,
+                                                     end_bit)
+                        rec = got[2]
+                        check("split_pad", [g for g in got if g is not None],
+                              [w for w in want if w is not None], what)
+                        if got[3] is not None:
+                            check("gather", (radix.gather_hi(pos, got[3]),),
+                                  (radix.gather_hi_plain(pos, want[3]),),
+                                  f"hi {what}")
+                    out_pos = torch.cat([
+                        torch.randperm(m, generator=gen, device=device),
+                        torch.arange(m, size, device=device)]).to(
+                        torch.int32).view(torch.uint32)
+                    got = radix.gather_out(out_pos, keys, rec)
+                    want = radix.gather_out_plain(out_pos, keys, rec)
+                    if not kv:
+                        got, want = (got,), (want,)
+                    check("gather", got, want, f"out n={m} u{width} "
+                          f"kv={kv} aligned={offset == 0}")
+                sync(device)
+        del k64, vals
+    return err
+
+
 def check_kernels(sizes=((N_CHECK, True), (N, False)), device="cuda",
                   by_mode: dict | None = None,
                   radix_sizes=RADIX_CHECK_SIZES) -> dict[str, int]:
@@ -670,40 +793,69 @@ def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
     return got
 
 
+def radix_launches(config: SortConfig, width: int, end_bit: int | None,
+                   count: bool) -> dict[str, int]:
+    """The launches of one radix sort of `width`-bit keys by bits [0,
+    end_bit) (every bit for None): K7, the spine and K8 once a pass; on
+    the (word, position) path (64-bit keys, or an end bit no multiple of
+    the digit) the split-pad and one gather, two past 32 bits; else a
+    count= sort's mask-pad and tail."""
+    bits = end_bit or width
+    got = dict.fromkeys(LAUNCH_COUNTERS, 0)
+    got.update(dict.fromkeys(RADIX_KERNELS, -(-bits // config.digit_bits)))
+    if width == 64 or bits % config.digit_bits:
+        got.update(split_pad=1, gather=2 if bits > 32 else 1)
+    elif count:
+        got.update(dict.fromkeys(RADIX_COUNT_KERNELS, 1))
+    return got
+
+
 def check_backend_launches(backend: str, got: dict[str, int],
-                           config: SortConfig, what: str) -> None:
+                           config: SortConfig, what: str,
+                           radix_want: dict | None = None) -> None:
     """One sort's launches against the backend that ran it: radix launches
-    K7, the spine and K8 exactly num_passes times each, the count= pad and
+    `radix_want` (`radix_launches`) and nothing else; without it, K7,
+    the spine and K8 exactly num_passes times each, the count= pad and
     tail once each or not at all, and no network kernel; the
     network launches network kernels and no radix kernel; the reference
     backend launches no kernel."""
     net = sum(got.get(k, 0) for k in NETWORK_KERNELS + MERGE_KERNELS)
     rad = {k: got.get(k, 0) for k in RADIX_KERNELS}
     cnt = {got.get(k, 0) for k in RADIX_COUNT_KERNELS}
-    ok = {"radix": net == 0 and set(rad.values()) == {config.num_passes}
-          and cnt in ({0}, {1}),
-          "network": net > 0 and not any(rad.values()) and cnt == {0},
+    ok = {"radix": got == radix_want if radix_want else (
+              net == 0 and set(rad.values()) == {config.num_passes}
+              and cnt in ({0}, {1})),
+          "network": net > 0 and not any(rad.values()) and cnt == {0}
+          and not any(got.get(k, 0) for k in RADIX_U64_KERNELS),
           "reference": not any(got.values())}[backend]
     if not ok:
         raise AssertionError(f"{what}: the {backend} backend launched {got}")
 
 
-def kind_backends(sorter) -> dict[str, str]:
-    return {"keys": sorter.backend, "kv": sorter.backend_kv,
-            "kvns": sorter.backend_kvns}
+def kind_backends(sorter, end_bit: int | None = None) -> dict[str, str]:
+    """The backend of each kind's call by bits [0, end_bit) (every bit
+    for None)."""
+    return {kind: sorter.backend_for(kind, end_bit)
+            for kind in ("keys", "kv", "kvns")}
 
 
 def held_runs(sorter, tag: str):
     """run(kind, fn, ...) and run_kv(fn, ..., stable=...): call fn inside
-    a launch recorder and hold its launches to the sorter's backend of
-    that kind (`check_backend_launches`)."""
-    backends = kind_backends(sorter)
+    a launch recorder and hold its launches to the backend that serves the
+    call (`Sorter.backend_for`, with its `end_bit`) and, on radix, to the
+    call's passes (`check_backend_launches`, `radix_launches`)."""
+    width = 64 if sorter.wide else 32
 
     def run(kind, fn, *args, **kw):
+        end_bit = kw.get("end_bit")
+        backend = sorter.backend_for(kind, None if end_bit == width
+                                     else end_bit)
         with timing.LaunchTimer() as timer:
             out = fn(*args, **kw)
-        check_backend_launches(backends[kind], _recorded(timer),
-                               sorter.config, f"{tag}{kind} sort")
+        want = radix_launches(sorter.config, width, end_bit,
+                              kw.get("count") is not None)
+        check_backend_launches(backend, _recorded(timer), sorter.config,
+                               f"{tag}{kind} sort", want)
         return out
 
     def run_kv(fn, *args, stable=True, **kw):
@@ -801,7 +953,6 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
                       lambda: oracle(mk[:count], vals[:count]))
         _expect(gk, np.concatenate([wk, mk[count:]]), f"{what}, keys")
         _expect(gv, np.concatenate([wv, vals[count:]]), f"{what}, values")
-    del dmk
 
     for dist in ("zipf", "few"):
         k2 = want(dist, lambda: datagen.generate_keys(n, seed=SEED + 2,
@@ -814,6 +965,21 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         wk, wv = want(f"stable {dist}", lambda: _stable_oracle(k2, vals))
         _expect(gk, wk, f"{tag}stable kv {dist}, keys")
         _expect(gv, wv, f"{tag}stable kv {dist}, values")
+
+    # by the low end_bit bits: 20 on the (word, position) path, 16 on
+    # the plain path's two passes (radix)
+    m20 = mk & np.uint32((1 << 20) - 1)
+    o = want("stable e20 count", lambda: _stable_order(m20[:count]))
+    _expect(run("keys", sorter.sort, dmk, count=cnt, end_bit=20),
+            np.concatenate([mk[:count][o], mk[count:]]),
+            f"{tag}keys end_bit=20 count=")
+    for bits in (20, 16):
+        o = want(f"stable e{bits}", lambda: _stable_order(
+            mk & np.uint32((1 << bits) - 1)))
+        gk, gv = run_kv(sorter.sort_key_value, dmk, dv, end_bit=bits)
+        _expect(gk, mk[o], f"{tag}stable kv end_bit={bits}, keys")
+        _expect(gv, vals[o], f"{tag}stable kv end_bit={bits}, values")
+    del dmk
 
     ki = keys.view(np.int32)
     _expect(run("keys", vrs.sort, to_dev(ki, device), config=config),
@@ -893,7 +1059,8 @@ def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
     sorter = vrs.Sorter(n, key_dtype=torch.uint64, device=device,
                         config=config)
     backends = kind_backends(sorter)
-    tag = "auto " if config is None else ""
+    tag = ("auto " if config is None else
+           "" if config.backend == "network" else f"{config.backend} ")
     log(f"[main] {tag or 'network '}u64 backends at n={n}:",
         json.dumps(backends))
     run, run_kv = held_runs(sorter, f"{tag}u64 ")
@@ -944,6 +1111,23 @@ def main_path64(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         _expect64(gk, np.concatenate([pk[o], keys[count:]]), f"{what}, keys")
         _expect(gv, np.concatenate([pv[o], vals[count:]]),
                 f"{what}, values")
+
+    # by the low end_bit bits: 45, the tile-depth sort of 3D Gaussian
+    # splatting (the benchmark's kv_u64_tile_depth), 13, the low word
+    # alone, and 64, every bit
+    def low(k, bits):
+        return k & (MAX64 >> np.uint64(64 - bits))
+    for bits in (45, 13, 64):
+        o = want(f"stable64 e{bits}",
+                 lambda: np.argsort(low(keys, bits), kind="stable"))
+        gk, gv = run_kv(sorter.sort_key_value, dk, dv, end_bit=bits)
+        _expect64(gk, keys[o], f"{tag}u64 stable kv end_bit={bits}, keys")
+        _expect(gv, vals[o], f"{tag}u64 stable kv end_bit={bits}, values")
+    o = want("stable64 e45 count",
+             lambda: np.argsort(low(pk, 45), kind="stable"))
+    _expect64(run("keys", sorter.sort, dk, count=cnt, end_bit=45),
+              np.concatenate([pk[o], keys[count:]]),
+              f"{tag}u64 keys end_bit=45 count=")
     del dk, dv, gk, gv
 
     ki = keys.view(np.int64)
@@ -1005,7 +1189,8 @@ def bound_ms(rec) -> tuple[float, str]:
     keys (and values) out. The count= pad: the c keys before the count (and
     n values) in, the padded buffers out; the tail: the n - c keys past it
     in and out; c is `path_count`'s, the count of every count= sort timed
-    here (the launch reads its own only on the card)."""
+    here (the launch reads its own only on the card). The 64-bit path's
+    split-pad and gather: `benchmark/roofline_u64.py`'s bytes."""
     if rec["names"][0] == "mask_pad":
         n = rec["n"]
         c = path_count(n)
@@ -1014,6 +1199,17 @@ def bound_ms(rec) -> tuple[float, str]:
     if rec["names"][0] == "restore_tail":
         n = rec["numel"]
         return _bound(8 * (n - path_count(n)), 0)
+    if rec["names"][0] == "split_pad":
+        return _bound(roofline_u64.split_pad_bytes(
+            rec["n"], rec["numel"], rec["key_bytes"], rec["key_value"],
+            rec["hi_bytes"]), 0)
+    if rec["names"][0] == "gather":
+        return _bound(roofline_u64.gather_hi_bytes(rec["numel"],
+                                                   rec["hi_bytes"])
+                      if rec["what"] == "hi" else
+                      roofline_u64.gather_out_bytes(
+                          rec["numel"], rec["key_bytes"], rec["key_value"]),
+                      0)
     if rec["names"][0] == "spine":
         entries = rec["nblocks"] * rec["radix"]
         return _bound(4 * (2 * entries + rec["radix"]),
@@ -1075,6 +1271,25 @@ def plain_ms(rec) -> float:
                 radix.mask_pad_plain(keys, vals, cnt, n)
             else:
                 radix.restore_tail_plain(_u32_zeros(m), keys, cnt)
+    elif rec["names"][0] in RADIX_U64_KERNELS:
+        wide = rec.get("key_bytes", 8) == 8
+        keys = torch.zeros(rec.get("n", n), device="cuda",
+                           dtype=torch.int64 if wide else torch.int32).view(
+            torch.uint64 if wide else torch.uint32)
+        pos = torch.arange(n, dtype=torch.int32, device="cuda").view(
+            torch.uint32)
+        vals = _u32_zeros(keys.numel()) if rec.get("key_value") else None
+        # an end bit that gives the launch's high words (none: 32)
+        end_bit = {2: 45, 4: 64}.get(rec.get("hi_bytes"), 32)
+        recs, hi = radix.split_pad_plain(keys, vals, None, n, end_bit)[2:]
+
+        def plain():
+            if rec["names"][0] == "split_pad":
+                radix.split_pad_plain(keys, vals, None, n, end_bit)
+            elif rec["what"] == "hi":
+                radix.gather_hi_plain(pos, hi)
+            else:
+                radix.gather_out_plain(pos, keys, recs)
     elif rec["names"][0] in RADIX_KERNELS:
         cfg, kv = rec["config"], rec["key_value"]
         gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
@@ -1176,6 +1391,26 @@ def path_sorts(n: int = N):
         "reference_keys": lambda: ref.sort(keys),
         "reference_stable_kv": lambda: ref.sort_key_value(keys, vals),
         "reference_keys_count": lambda: ref.sort(keys, count=cnt),
+    }
+    return sorts, keys, vals
+
+
+def radix_u64_sorts(n: int = N):
+    """The benchmark's kv_u64_tile_depth call at n as closures for timing:
+    uniform uint64 keys below 2^45 and uint32 values, sorted stably by
+    end_bit 45 on radix (key-value and keys) and on the reference
+    backend."""
+    rng = np.random.default_rng(SEED + 35)
+    keys = to_dev(rng.integers(0, 1 << 45, n, dtype=np.uint64), "cuda")
+    vals = to_dev(datagen.generate_values(n, seed=SEED + 36), "cuda")
+    rad = vrs.Sorter(n, key_dtype=torch.uint64, config=RADIX)
+    ref = vrs.Sorter(n, key_dtype=torch.uint64, config=REFERENCE)
+    sorts = {
+        "radix_u64_stable_kv_e45": lambda: rad.sort_key_value(
+            keys, vals, end_bit=45),
+        "radix_u64_keys_e45": lambda: rad.sort(keys, end_bit=45),
+        "reference_u64_stable_kv_e45": lambda: ref.sort_key_value(
+            keys, vals, end_bit=45),
     }
     return sorts, keys, vals
 
@@ -2106,13 +2341,16 @@ def crossover(mine: dict, ref: dict) -> int | None:
 
 
 def crossovers(ms: dict, engines) -> dict:
-    """For each engine and sort kind, `crossover` against the reference
-    backend over the sizes of `ms` ((backend, sort, n) -> ms)."""
+    """For each engine and sort of `ms` ((backend, sort, n) -> ms),
+    `crossover` against the reference backend over its sizes; an engine
+    the table does not hold is left out."""
     sizes = {n for _, _, n in ms}
+    sorts = dict.fromkeys(s for _, s, _ in ms)
+    held = {b for b, _, _ in ms}
     return {f"{name}_{sort}": crossover(
         {n: ms[name, sort, n] for n in sizes},
         {n: ms["reference", sort, n] for n in sizes})
-        for name in engines for sort in SWEEP_SORTS}
+        for name in engines if name in held for sort in sorts}
 
 
 def sweep_phase(card: str) -> dict:
@@ -2150,7 +2388,8 @@ def sweep_phase(card: str) -> dict:
 
 # -- phase 11b: the 64-bit sweep ----------------------------------------------
 
-SWEEP64_BACKENDS = ("network", "reference")  # radix refuses 64-bit keys
+SWEEP64_BACKENDS = ("radix", "reference")
+SWEEP64_BITS = (40, 48, 56, 64)  # 5 to 8 radix passes
 
 
 def sweep64_inputs(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -2162,12 +2401,14 @@ def sweep64_inputs(n: int, device) -> tuple[torch.Tensor, torch.Tensor]:
     return to_dev(keys, device), to_dev(vals, device)
 
 
-def sort_calls(sorter, keys, vals) -> dict:
-    """Sort kind -> a closure that sorts these tensors with `sorter`, on
-    the same unsorted input every call."""
-    return {"keys": lambda: sorter.sort(keys),
-            "kv": lambda: sorter.sort_key_value(keys, vals),
-            "kvns": lambda: sorter.sort_key_value(keys, vals, stable=False)}
+def sort_calls(sorter, keys, vals, end_bit: int | None = None) -> dict:
+    """Sort kind -> a closure that sorts these tensors with `sorter` (by
+    bits [0, end_bit)), on the same unsorted input every call."""
+    return {"keys": lambda: sorter.sort(keys, end_bit=end_bit),
+            "kv": lambda: sorter.sort_key_value(keys, vals,
+                                                end_bit=end_bit),
+            "kvns": lambda: sorter.sort_key_value(keys, vals, stable=False,
+                                                  end_bit=end_bit)}
 
 
 def sort_ms(fn) -> float:
@@ -2179,7 +2420,7 @@ def gate64(backend: str, n: int, device="cuda") -> None:
     """The correctness gate of a 64-bit sweep backend, as the harness's:
     a uint64 sorter on `backend` at n against numpy, keys and stable kv
     exact, stable=False with exact keys and the (key, value) multiset
-    kept."""
+    kept; stable kv by end_bit 45 exact."""
     keys, vals = sweep64_inputs(n, device)
     k_np, v_np = keys.cpu().numpy(), vals.cpu().numpy()
     s = vrs.Sorter(n, key_dtype=torch.uint64, device=device,
@@ -2195,14 +2436,19 @@ def gate64(backend: str, n: int, device="cuda") -> None:
     want, have = np.lexsort((v_np, k_np)), np.lexsort((gv, gk))
     _expect(torch.from_numpy(gv[have]), v_np[want],
             f"sweep64 {backend} gate kvns, (key, value) multiset")
+    o = np.argsort(k_np & np.uint64((1 << 45) - 1), kind="stable")
+    gk, gv = s.sort_key_value(keys, vals, end_bit=45)
+    _expect64(gk, k_np[o], f"sweep64 {backend} gate kv end_bit=45, keys")
+    _expect(gv, v_np[o], f"sweep64 {backend} gate kv end_bit=45, values")
 
 
 def sweep64_phase(card: str, sizes=SWEEP_SIZES) -> dict:
-    """uint64 keys: the network against the reference backend for keys,
-    kv and kvns at powers of two from 2^14 to 2^25, each backend after its
-    gate; device time with CUDA events on the same unsorted input every
-    call; the sizes from which the network beats the reference. Returns
-    the device ms by (backend, sort, n)."""
+    """uint64 keys: radix against the reference backend for keys, kv and
+    kvns by end_bit 40, 48, 56 and 64 (5 to 8 radix passes; sorts named
+    `<kind>_e<end_bit>`) at powers of two from 2^14 to 2^25, each backend
+    after its gate; device time with CUDA events on the same unsorted
+    input every call; the sizes from which radix beats the reference.
+    Returns the device ms by (backend, sort, n)."""
     keys, vals = sweep64_inputs(max(sizes), "cuda")
     ms = {}
     for name in SWEEP64_BACKENDS:
@@ -2211,15 +2457,18 @@ def sweep64_phase(card: str, sizes=SWEEP_SIZES) -> dict:
         for n in sizes:
             s = vrs.Sorter(n, key_dtype=torch.uint64,
                            config=SortConfig(backend=name))
-            for sort, fn in sort_calls(s, keys[:n], vals[:n]).items():
-                t = ms[name, sort, n] = sort_ms(fn)
-                rows.append({"n": n, "sort": sort, "gpu_ms": t,
-                             "gitems_s": n / t / 1e6})
+            for bits in SWEEP64_BITS:
+                for kind, fn in sort_calls(s, keys[:n], vals[:n],
+                                           bits).items():
+                    sort = f"{kind}_e{bits}"
+                    t = ms[name, sort, n] = sort_ms(fn)
+                    rows.append({"n": n, "sort": sort, "gpu_ms": t,
+                                 "gitems_s": n / t / 1e6})
         log("[sweep64]", json.dumps({"backend": name, "card": card,
                                      "keys": "uint64", "gate": "ok",
                                      "results": rows}))
     log("[sweep64] crossover vs reference",
-        json.dumps(crossovers(ms, ("network",))))
+        json.dumps(crossovers(ms, ("radix",))))
     return ms
 
 
@@ -2232,7 +2481,7 @@ def median_sweeps(card: str, repeats: int = 3) -> tuple[dict, dict]:
     runs = [(sweep_phase(card), sweep64_phase(card)) for _ in range(repeats)]
     out = []
     for i, (keys, engines) in enumerate((("uint32", ("network", "radix")),
-                                         ("uint64", ("network",)))):
+                                         ("uint64", ("radix",)))):
         tables = [r[i] for r in runs]
         med = {p: statistics.median(t[p] for t in tables) for p in tables[0]}
         rows = [{"backend": b, "sort": s, "n": n, "ms": med[b, s, n],
@@ -2249,7 +2498,7 @@ def median_sweeps(card: str, repeats: int = 3) -> tuple[dict, dict]:
 # -- phase 11c: what 'auto' picks ---------------------------------------------
 
 # the kernel backends that sort each width, the candidates for its engine
-ENGINES = {False: ("network", "radix"), True: ("network",)}
+ENGINES = {False: ("network", "radix"), True: ("radix",)}
 
 
 def auto_report(wide: bool, ms: dict, auto: dict, sizes=SWEEP_SIZES) -> dict:
@@ -2280,13 +2529,14 @@ def auto_report(wide: bool, ms: dict, auto: dict, sizes=SWEEP_SIZES) -> dict:
 
 
 def auto_phase(card: str, ms32: dict, ms64: dict, sizes=SWEEP_SIZES) -> dict:
-    """Sorter(n) with 'auto' at every swept size, 32- and 64-bit keys: the
-    backend each kind picks and its device ms (the 32-bit sweep's inputs,
-    and the 64-bit sweep's), reported by `auto_report` against the same
-    run's sweeps. Report only: no time gates it."""
+    """Sorter(n) with 'auto' at every swept size, 32- and 64-bit keys (by
+    each end bit of the 64-bit sweep): the backend that serves each
+    kind's call and its device ms (the 32-bit sweep's inputs, and the
+    64-bit sweep's), reported by `auto_report` against the same run's
+    sweeps. Report only: no time gates it."""
     k64, v64 = sweep64_inputs(max(sizes), "cuda")
     out = {}
-    for wide, ms in ((False, ms32), (True, ms64)):
+    for wide, bits in [(False, None)] + [(True, b) for b in SWEEP64_BITS]:
         auto = {}
         for n in sizes:
             if wide:
@@ -2296,10 +2546,13 @@ def auto_phase(card: str, ms32: dict, ms64: dict, sizes=SWEEP_SIZES) -> dict:
                 v = to_dev(datagen.generate_keys(n, seed=1), "cuda")
             s = vrs.Sorter(n, key_dtype=torch.uint64 if wide
                            else torch.uint32)
-            picks = kind_backends(s)
-            for sort, fn in sort_calls(s, k, v).items():
+            picks = kind_backends(s, bits)
+            for sort, fn in sort_calls(s, k, v, bits).items():
                 auto[sort, n] = (picks[sort], sort_ms(fn))
-        width = "u64" if wide else "u32"
+        ms = ms32 if not wide else {
+            (b, sort, n): t for (b, srt, n), t in ms64.items()
+            for sort in SWEEP_SORTS if srt == f"{sort}_e{bits}"}
+        width = f"u64 e{bits}" if wide else "u32"
         report = auto_report(wide, ms, auto, sizes)
         for sort, r in report.items():
             log(f"[auto] {width} {sort}", json.dumps({"card": card, **r}))
@@ -2417,11 +2670,13 @@ def radix_profile_phase(n: int = N) -> dict:
     return out
 
 
-def _path_launches(config: SortConfig, kernels, oracles) -> dict:
-    """Drive one backend's main path inside a launch recorder; every
-    kernel of `kernels` must have launched."""
+def _path_launches(config: SortConfig, kernels, oracles,
+                   path=None) -> dict:
+    """Drive one backend's main path (`path`: main_path, or main_path64)
+    inside a launch recorder; every kernel of `kernels` must have
+    launched."""
     with timing.LaunchTimer() as timer:
-        main_path(config=config, oracles=oracles)
+        (path or main_path)(config=config, oracles=oracles)
         torch.cuda.synchronize()
     launches = _recorded(timer)
     log("[launches]", config.backend, json.dumps(launches))
@@ -2432,7 +2687,8 @@ def _path_launches(config: SortConfig, kernels, oracles) -> dict:
 
 
 BACKEND_KERNELS = {"network": NETWORK_KERNELS,
-                   "radix": RADIX_KERNELS + RADIX_COUNT_KERNELS,
+                   "radix": RADIX_KERNELS + RADIX_COUNT_KERNELS
+                   + RADIX_U64_KERNELS,
                    "reference": ()}
 
 
@@ -2478,6 +2734,10 @@ def main() -> int:
                                    oracles))
     _path_launches(REFERENCE, BACKEND_KERNELS["reference"], oracles)
     carries = _path_launches64(oracles)
+    wide = _path_launches(RADIX, RADIX_KERNELS + RADIX_U64_KERNELS, oracles,
+                          main_path64)
+    for k in RADIX_U64_KERNELS:
+        launches[k] += wide[k]
     auto_launches = _auto_launches(oracles)
     del oracles
 
@@ -2487,6 +2747,10 @@ def main() -> int:
     sorts, keys, vals = path_sorts64()
     e2e_times(sorts, keys, vals, card, lib="library_u64")
     per64, _ = kernel_times(sorts, by_mode=True)
+    sorts, keys, vals = radix_u64_sorts()
+    e2e_times(sorts, keys, vals, card, lib="library_u64_e45")
+    per_u64, _ = kernel_times(sorts)
+    per.update({k: per_u64[k] for k in RADIX_U64_KERNELS})
     del sorts, keys, vals
 
     err["local_gated"] = check_slot_merges()

@@ -40,17 +40,19 @@ def test_auto_constants():
     lines, the crossovers of the median of three sweeps in one run (one
     NVIDIA H100 80GB HBM3 at 700 W; PERF.md section 5). 32-bit: radix has
     the most GItems/s at 2^25 for every kind and beats the one-sort
-    reference backend from 2^23 (keys, kv, kvns). 64-bit: the network,
-    the only engine, does not beat the reference at 2^25 for any kind, so
-    'auto' is the reference at every n."""
+    reference backend from 2^23 (keys, kv, kvns). 64-bit: radix beats the
+    reference at 2^25 for every kind at 5, 6 and 7 passes (end_bit 40,
+    48, 56), not at 8 (a whole 64-bit key), from 2^22 (keys) and 2^23
+    (kv, kvns), the largest of its crossovers at 5-7 passes."""
     assert sorter.AUTO == {
         ("keys", False): ("radix", 1 << 23),
         ("kv", False): ("radix", 1 << 23),
         ("kvns", False): ("radix", 1 << 23),
-        ("keys", True): ("network", None),
-        ("kv", True): ("network", None),
-        ("kvns", True): ("network", None),
+        ("keys", True): ("radix", 1 << 22),
+        ("kv", True): ("radix", 1 << 23),
+        ("kvns", True): ("radix", 1 << 23),
     }
+    assert sorter.AUTO_MAX_PASSES64 == 7
 
 
 @pytest.mark.parametrize("kind,wide", list(sorter.AUTO),
@@ -91,18 +93,47 @@ def test_cpu_is_reference_and_names_pass_through():
                                  kind="bogus") == "network"
 
 
-def test_wide_keys_never_get_radix():
+def test_wide_keys_never_get_radix(monkeypatch):
+    """64-bit keys never get radix under 'auto' on the CPU, nor on a card
+    for a call of more radix passes than AUTO_MAX_PASSES64 (a whole
+    64-bit key's 8 among them): those go to the reference. A call of at
+    most that many passes, from the cut, gets radix: the 2^25 sorter's
+    stable kv call at end_bit 45 (6 passes) among them. A named backend is
+    never overridden. The card's picks are made on a CPU sorter through
+    `_pick_backend` asked for a CUDA device."""
     for kind in KINDS:
-        picks = {sorter._pick_backend(SortConfig(), dev, n, kind, True)
-                 for dev in (CPU, CUDA)
-                 for n in [1 << p for p in range(31)] + [None]}
-        assert "radix" not in picks
+        assert {sorter._pick_backend(SortConfig(), CPU, n, kind, True)
+                for n in [1 << p for p in range(31)] + [None]} == {
+            "reference"}
     for dtype in (torch.uint64, torch.int64, torch.float64):
         s = vrs.Sorter(1 << 25, key_dtype=dtype, device="cpu")
-        assert "radix" not in (s.backend, s.backend_kv, s.backend_kvns)
-        with pytest.raises(NotImplementedError, match="radix"):
-            vrs.Sorter(1 << 25, key_dtype=dtype, device="cpu",
+        assert {s.backend_for(k, e) for k in KINDS
+                for e in (None, 45)} == {"reference"}
+    real = sorter._pick_backend
+    monkeypatch.setattr(sorter, "_pick_backend",
+                        lambda cfg, device, *a: real(cfg, CUDA, *a))
+    for kind in KINDS:
+        engine, cut = sorter.AUTO[kind, True]
+        limit = sorter.AUTO_MAX_PASSES64
+        assert limit < 8
+        for max_n in (cut - 1, cut, 1 << 25):
+            s = vrs.Sorter(max_n, key_dtype=torch.uint64, device="cpu")
+            for end_bit in range(1, 65):
+                passes = -(-end_bit // 8)
+                want = engine if max_n >= cut and passes <= limit \
+                    else "reference"
+                assert s.backend_for(kind, end_bit) == want, (max_n,
+                                                              end_bit)
+            assert s.backend_for(kind) == "reference"
+    s = vrs.Sorter(1 << 25, key_dtype=torch.uint64, device="cpu")
+    assert s.backend_for("kv", 45) == "radix"
+    named = vrs.Sorter(1 << 25, key_dtype=torch.uint64, device="cpu",
                        config=SortConfig(backend="radix"))
+    assert {named.backend_for(k, e) for k in KINDS
+            for e in (None, 45)} == {"radix"}
+    narrow = vrs.Sorter(1 << 25, device="cpu")
+    assert {narrow.backend_for(k, e) for k in KINDS
+            for e in (None, 4, 32)} == {"radix"}
 
 
 @pytest.mark.parametrize("device", [CPU, CUDA], ids=str)

@@ -400,6 +400,130 @@ def test_cuda_count_sort_holds_what_the_plain_sort_holds(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_radix_peak_within_storage_requirements(cuda_device):
+    """A 2^25 radix sort's allocator-peak rise (its scratch and output) is
+    at most `storage_requirements()`: two ping-pong buffers (and value
+    buffers) and one pass's tables, for uint32 keys and kv `count=`; and
+    for uint64 keys by end_bit 45 the (word, position) pairs and the
+    16-bit high words, and for kv the records."""
+    n = 1 << 25
+    rng = np.random.default_rng(47)
+    k32 = torch.from_numpy(_u32(n, 48)).to(cuda_device)
+    k64 = torch.from_numpy(rng.integers(0, 1 << 45, n, dtype=np.uint64)
+                           .view(np.int64)).to(cuda_device).view(
+        torch.uint64)
+    vals = torch.from_numpy(_u32(n, 49)).to(cuda_device)
+    cnt = torch.tensor(n - 5, device=cuda_device)
+    cfg = SortConfig(backend="radix")
+    s32 = vrs.Sorter(n, config=cfg)
+    s64 = vrs.Sorter(n, key_dtype=torch.uint64, config=cfg)
+
+    def rise(fn):
+        fn()  # built and warm
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        del out
+        return torch.cuda.max_memory_allocated() - base
+    for sorter, fn, kv in (
+            (s32, lambda: s32.sort(k32), False),
+            (s32, lambda: s32.sort_key_value(k32, vals, count=cnt), True),
+            (s64, lambda: s64.sort(k64, end_bit=45), False),
+            (s64, lambda: s64.sort_key_value(k64, vals, end_bit=45), True)):
+        assert rise(fn) <= sorter.storage_requirements(key_value=kv)
+
+
+U64_COUNTS = (None, -3, 0, 1, 4095, "n-999", "n", "n+5")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv", [False, True], ids=["keys", "kv"])
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("n", [radix.MIN_RADIX_N + 17, 1 << 25])
+def test_cuda_split_pad_and_gather_match_plain(cuda_device, n, width, kv):
+    """The (word, position) path's split-pad and gather kernels bitwise
+    equal to their plain versions over every count, on 16-byte aligned
+    keys and on views one word in (keys[1:]), which are not: the
+    split-pad's words, positions, records and high words (16 bits at end
+    bit 45, 32 at 64); the high-word gather by a permutation of the padded
+    positions; the output gather of the keys, or of keys and values from
+    the records."""
+    block = SortConfig().block
+    size = -(-n // block) * block
+    g = torch.Generator(device=cuda_device).manual_seed(n + width)
+    base = torch.randint(-(1 << 63), (1 << 63) - 1, (n + 1,), generator=g,
+                         device=cuda_device)
+    base[::61] = -1
+    base = (base.view(torch.uint64) if width == 64
+            else base.to(torch.int32).view(torch.uint32))
+    base_v = torch.from_numpy(_u32(n + 1, 36)).to(cuda_device)
+    end_bits = (13, 45, 64) if width == 64 else (12,)
+    for offset in (0, 1):
+        keys = base[offset:offset + n]
+        vals = base_v[offset:offset + n] if kv else None
+        assert (keys.data_ptr() % 16 == 0) == (offset == 0)
+        for end_bit in end_bits:
+            for count in U64_COUNTS:
+                count = {"n-999": n - 999, "n": n, "n+5": n + 5}.get(count,
+                                                                      count)
+                cnt = None if count is None else torch.tensor(
+                    count, device=cuda_device)
+                got = radix.split_pad(keys, vals, cnt, size, end_bit)
+                want = radix.split_pad_plain(keys, vals, cnt, size, end_bit)
+                assert [x is None for x in got] == [x is None for x in want]
+                for a, b in zip(got, want):
+                    if a is not None:
+                        assert torch.equal(a.view(b.dtype), b), (offset,
+                                                                 count)
+                if end_bit > 32:
+                    pos = torch.randperm(size, generator=g,
+                                         device=cuda_device).to(
+                        torch.int32).view(torch.uint32)
+                    assert torch.equal(*_as_i32(
+                        radix.gather_hi(pos, got[3]),
+                        radix.gather_hi_plain(pos, want[3]))), (offset,
+                                                                count)
+        pos = torch.cat([torch.randperm(n, generator=g, device=cuda_device),
+                         torch.arange(n, size, device=cuda_device)]).to(
+            torch.int32).view(torch.uint32)
+        rec = radix.split_pad(keys, vals, None, size, width)[2]
+        got = radix.gather_out(pos, keys, rec)
+        want = radix.gather_out_plain(pos, keys, rec)
+        got, want = (got, want) if kv else ((got,), (want,))
+        for a, b in zip(got, want):
+            signed = torch.int64 if a.element_size() == 8 else torch.int32
+            assert torch.equal(a.view(signed), b.view(signed)), offset
+
+
+@pytest.mark.cuda
+def test_cuda_tile_depth_sort_matches_plain_reference(cuda_device):
+    """The benchmark cell's call on the card: a 2^25 uint64 Sorter under
+    'auto' sorts uniform 45-bit keys and uint32 values stably by
+    end_bit 45 on radix (split-pad, 6 passes, 2 gathers), bitwise as
+    `plain_reference.sort_pairs_bits`."""
+    from vulkan_radix_sort_tpu_torch import plain_reference
+    n = 1 << 25
+    rng = np.random.default_rng(45)
+    keys = torch.from_numpy(rng.integers(0, 1 << 45, n, dtype=np.uint64)
+                            .view(np.int64)).to(cuda_device).view(
+        torch.uint64)
+    vals = torch.from_numpy(_u32(n, 46)).to(cuda_device)
+    s = vrs.Sorter(n, key_dtype=torch.uint64)
+    with timing.LaunchTimer() as t:
+        gk, gv = s.sort_key_value(keys, vals, stable=True, end_bit=45)
+    names = [r["names"][0] for r in t.records]
+    assert names == (["split_pad"] + ["block_sort", "spine", "place"] * 4
+                     + ["gather"] + ["block_sort", "spine", "place"] * 2
+                     + ["gather"])
+    assert t.counts == {"vrs.backend.radix": 1, "vrs.radix.pass": 6}
+    wk, wv = plain_reference.sort_pairs_bits(keys, vals, 45)
+    assert torch.equal(gk.view(torch.int64), wk.view(torch.int64))
+    assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))
+
+
+@pytest.mark.cuda
 def test_cuda_unaligned_buffer_is_refused(cuda_device):
     k = torch.zeros(1 << 12, dtype=torch.int32,
                     device=cuda_device).view(torch.uint32)
@@ -1056,16 +1180,21 @@ def test_cuda_auto_by_size_and_kind(cuda_device, kind, wide):
     cut (at 2^25 where the kind has none): the kind's backend is the one
     the table gives, one sort of that kind launches that backend's kernels
     and no other, and the answer is numpy's (stable=False: the network's
-    (key, value) order, else the stable one)."""
+    (key, value) order, else the stable one). A 64-bit sort is by the
+    most bits radix serves (`AUTO_MAX_PASSES64`), so it takes the (word,
+    position) path's kernels too; a whole 64-bit key goes to the
+    reference at every n."""
     engine, cut = sorter.AUTO[kind, wide]
     dtype = torch.uint64 if wide else torch.uint32
+    end_bit = 8 * sorter.AUTO_MAX_PASSES64 if wide else None
     for n, want in (((cut - 1, "reference"), (cut, engine)) if cut
                     else ((1 << 25, "reference"),)):
         s = vrs.Sorter(n, key_dtype=dtype)
         got = {"keys": s.backend, "kv": s.backend_kv,
                "kvns": s.backend_kvns}[kind]
-        assert got == want
+        assert got == want == s.backend_for(kind, end_bit)
         if wide:
+            assert s.backend_for(kind) == "reference"
             k = _keys64(n, 40)
         else:
             k = _u32(n, 40, 1 << 20)
@@ -1073,16 +1202,23 @@ def test_cuda_auto_by_size_and_kind(cuda_device, kind, wide):
         dk = torch.from_numpy(k).to(cuda_device)
         dv = torch.from_numpy(v).to(cuda_device)
         with timing.LaunchTimer() as t:
-            out = (s.sort(dk) if kind == "keys" else
-                   s.sort_key_value(dk, dv, stable=kind == "kv"))
+            out = (s.sort(dk, end_bit=end_bit) if kind == "keys" else
+                   s.sort_key_value(dk, dv, stable=kind == "kv",
+                                    end_bit=end_bit))
             torch.cuda.synchronize()
         names = {x for rec in t.records for x in rec["names"]}
         if want == "network":
             assert names and names <= AUTO_KERNELS["network"]
+        elif want == "radix" and wide:
+            assert names == AUTO_KERNELS[want] | {"split_pad", "gather"}
         else:
             assert names == AUTO_KERNELS[want]
-        order = (np.lexsort((v, k)) if kind == "kvns" and want == "network"
-                 else np.argsort(k, kind="stable"))
+        if wide:
+            k_bits = k & np.uint64((1 << end_bit) - 1)
+            order = np.argsort(k_bits, kind="stable")
+        else:
+            order = (np.lexsort((v, k)) if kind == "kvns" and
+                     want == "network" else np.argsort(k, kind="stable"))
         if kind == "keys":
             np.testing.assert_array_equal(out.cpu().numpy(), k[order])
         else:

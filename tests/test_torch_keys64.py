@@ -28,7 +28,7 @@ import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import SortConfig, config_from_jax
 from vulkan_radix_sort_tpu_torch.ops import bitonic as tbit
 from vulkan_radix_sort_tpu_torch.ops import bitonic_kernels as bk
-from vulkan_radix_sort_tpu_torch.ops import bitops
+from vulkan_radix_sort_tpu_torch.ops import bitops, radix
 from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 
 CHUNK = 256
@@ -237,13 +237,25 @@ def test_storage_requirements64_match_jax(max_n, key_value):
 
 
 def test_radix_refuses_64_bit_keys():
-    """As in the JAX package: the radix backend (and its alias) refuses
-    wide keys by name; 'auto' on the CPU takes the reference backend."""
+    """What the radix backend (and its alias) refuses of 64-bit keys: an
+    end_bit on int64 or float64 keys, which have no unsigned bits to
+    order (ValueError); it sorts all three dtypes whole, bitwise as the
+    JAX package's reference sort does, and 'auto' on the CPU takes the
+    reference backend."""
     for dtype in DTYPES:
+        keys = _keys(dtype, radix.MIN_RADIX_N + 5)
+        tk = torch.from_numpy(keys)
+        want = jvrs.Sorter(keys.size, key_dtype=DTYPES[dtype][0],
+                           config=jvrs.SortConfig(backend="xla")).sort(
+            jnp.asarray(keys))
         for backend in ("radix", "pallas"):
-            with pytest.raises(NotImplementedError, match="radix"):
-                vrs.Sorter(16, key_dtype=dtype, device="cpu",
+            s = vrs.Sorter(keys.size, key_dtype=dtype, device="cpu",
                            config=SortConfig(backend=backend))
+            assert s.backend == "radix"
+            _eq(s.sort(tk), want)
+            if dtype != torch.uint64:
+                with pytest.raises(ValueError, match="end_bit"):
+                    s.sort(tk, end_bit=45)
         s = vrs.Sorter(16, key_dtype=dtype, device="cpu")
         assert (s.backend, s.backend_kv, s.backend_kvns) == (
             "reference",) * 3

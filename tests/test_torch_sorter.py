@@ -200,11 +200,20 @@ def test_refusals():
         SortConfig(backend="xla")
     with pytest.raises(ValueError):
         SortConfig(chunk=300)
-    for dt in (torch.uint64, torch.int64, torch.float64):
-        # 64-bit keys sort on the network and the reference backend only
-        with pytest.raises(NotImplementedError, match="radix"):
-            vrs.Sorter(16, key_dtype=dt, device="cpu",
+    for dt in (torch.int32, torch.float32, torch.int64, torch.float64):
+        # radix takes 64-bit keys too; end_bit orders unsigned keys only
+        s = vrs.Sorter(16, key_dtype=dt, device="cpu",
                        config=SortConfig(backend="radix"))
+        keys = torch.zeros(8, dtype=dt)
+        with pytest.raises(ValueError, match="end_bit"):
+            s.sort(keys, end_bit=8)
+    for dt, width in ((torch.uint32, 32), (torch.uint64, 64)):
+        s = vrs.Sorter(16, key_dtype=dt, device="cpu")
+        keys = torch.zeros(8, dtype=torch.int64).to(
+            torch.int32 if width == 32 else torch.int64).view(dt)
+        for bad in (0, -1, width + 1):
+            with pytest.raises(ValueError, match="end_bit"):
+                s.sort(keys, end_bit=bad)
     with pytest.raises(ValueError):
         vrs.Sorter(16, key_dtype=torch.int16, device="cpu")
     s = vrs.Sorter(16, device="cpu")
@@ -318,7 +327,8 @@ def test_chip_smoke_phases_on_the_cpu(monkeypatch):
     from vulkan_radix_sort_tpu_torch.models import sorter
 
     err = cs.check_kernels(sizes=((1 << 16, True), (1 << 16, False)),
-                           device="cpu")
+                           device="cpu",
+                           radix_sizes=((1 << 16, True), (1 << 16, False)))
     err["local_gated"] = cs.check_slot_merges(slot=1 << 12, device="cpu")
     cs.check_halves_merge(m=1 << 13, device="cpu")
     # every kernel row's kernel, and the spine (K8's column sums, a
@@ -393,9 +403,9 @@ def test_chip_smoke_median_sweeps(monkeypatch):
         calls.append(32)
         return table(calls.count(32) - 1, ("network", "radix", "reference"))
 
-    def sweep64(card):
+    def sweep64(card):  # radix the only 64-bit engine
         calls.append(64)
-        return table(calls.count(64) - 1, ("network", "reference"))
+        return table(calls.count(64) - 1, ("radix", "reference"))
     monkeypatch.setattr(cs, "sweep_phase", sweep32)
     monkeypatch.setattr(cs, "sweep64_phase", sweep64)
     monkeypatch.setattr(cs, "log", lambda *a: lines.append(a))
@@ -403,13 +413,13 @@ def test_chip_smoke_median_sweeps(monkeypatch):
     assert calls == [32, 64] * 3
     assert med32["radix", "keys", 1 << 16] == pytest.approx(1.1)
     assert med32["reference", "keys", 1 << 16] == pytest.approx(1.6)
-    assert set(med64) == {k for k in med32 if k[0] != "radix"}
+    assert set(med64) == {k for k in med32 if k[0] != "network"}
     assert cs.crossovers(table(0, base), ("radix",))["radix_keys"] == 1 << 17
     logged = [json.loads(a[1]) for a in lines if a[0] == "[sweep-median]"]
     assert [x["keys"] for x in logged] == ["uint32", "uint64"]
     assert logged[0]["crossover"]["radix_keys"] == 1 << 16
     assert logged[0]["crossover"]["network_kv"] is None
-    assert logged[1]["crossover"] == {f"network_{s}": None
+    assert logged[1]["crossover"] == {f"radix_{s}": 1 << 16
                                       for s in cs.SWEEP_SORTS}
     row = next(x for x in logged[0]["results"] if (
         x["backend"], x["sort"], x["n"]) == ("reference", "kv", 1 << 16))

@@ -143,7 +143,9 @@ def test_one_backend_count_a_call(call, backend, n, served):
     with timing.LaunchTimer() as timer:
         CALLS[call](s, k, v)
         CALLS[call](s, k, v)
-    assert timer.counts == {f"vrs.backend.{served}": 2}
+    # and each radix call counts its four passes
+    passes = {"vrs.radix.pass": 8} if served == "radix" else {}
+    assert timer.counts == {f"vrs.backend.{served}": 2, **passes}
     assert (len(timer.records) > 0) == (served != "reference")
     # a radix count= call launches the pad's and the tail's kernel once
     masked = served == "radix" and call.endswith("_count")
@@ -159,7 +161,7 @@ def test_the_adaptive_fast_path_counts_itself():
         s.sort_key_value(k, k)
         s.sort(_u32(N, 8))
     assert timer.counts == {"vrs.backend.adaptive": 2,
-                            "vrs.backend.radix": 1}
+                            "vrs.backend.radix": 1, "vrs.radix.pass": 4}
 
 
 def test_nothing_listening_is_the_null_context(monkeypatch):

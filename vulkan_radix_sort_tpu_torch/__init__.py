@@ -17,9 +17,15 @@ non-stable by (key, value)), and dynamic counts (`count=`, the
 reference's indirect path), on a CUDA device unless asked for the CPU,
 where each kernel's plain PyTorch version runs instead. uint64, int64
 and float64 keys sort the same ways on the network (as (hi, lo) uint32
-words, key-value in the three-word carries of `csrc/network_w64.cu`) and
-the reference backend; the radix backend refuses them. `SortConfig(adaptive=True)` answers sorted,
-reverse-sorted and constant inputs without the engine. Measurement:
+words, key-value in the three-word carries of `csrc/network_w64.cu`), on
+radix (as (word, position) pairs through the same passes, `radix.sort_u64`)
+and on the reference backend. uint32 and uint64 keys may be ordered by
+their low `end_bit` bits alone, stably, and come back whole, as with
+CUB's end_bit: a sort of fewer bits runs fewer radix passes, and 'auto'
+gives a 64-bit call to radix only at pass counts where radix was measured
+to win (`models.sorter.AUTO_MAX_PASSES64`). `SortConfig(adaptive=True)`
+answers sorted, reverse-sorted and constant inputs without the engine.
+Measurement:
 `Sorter.sort_timed` / `sort_key_value_timed` (per-stage device times),
 `utils.profiling` (a torch.profiler trace), and the bench harness,
 `python -m vulkan_radix_sort_tpu_torch.bench <backend>`.
@@ -45,21 +51,25 @@ __all__ = [
 ]
 
 
-def sort(keys, count=None, config=None):
-    """One-shot ascending sort on the keys' device (a throwaway Sorter).
+def sort(keys, count=None, config=None, end_bit=None):
+    """One-shot ascending sort on the keys' device (a throwaway Sorter);
+    `end_bit` as in `Sorter.sort`.
 
     Analog of vrdxCmdSort / vrdxCmdSortIndirect (h.in:310-331).
     """
     s = Sorter(max(1, keys.numel()), key_dtype=keys.dtype, config=config,
                device=keys.device)
-    return s.sort(keys, count=count)
+    return s.sort(keys, count=count, end_bit=end_bit)
 
 
-def sort_key_value(keys, values, count=None, config=None, stable=True):
-    """One-shot key-value sort on the keys' device (stable by default).
+def sort_key_value(keys, values, count=None, config=None, stable=True,
+                   end_bit=None):
+    """One-shot key-value sort on the keys' device (stable by default);
+    `end_bit` as in `Sorter.sort`.
 
     Analog of vrdxCmdSortKeyValue / ...Indirect (h.in:333-342).
     """
     s = Sorter(max(1, keys.numel()), key_dtype=keys.dtype, config=config,
                device=keys.device)
-    return s.sort_key_value(keys, values, count=count, stable=stable)
+    return s.sort_key_value(keys, values, count=count, stable=stable,
+                            end_bit=end_bit)

@@ -63,6 +63,12 @@ SIGNATURES = {
     "vrs_mask_pad": (_I, _P, _LL, _LL, _P, _P, _P, _P, _P),
     # (count, n, keys, out, stream)
     "vrs_restore_tail": (_P, _LL, _P, _P, _P),
+    # (wide, count, n, size, keys, vals, mask, hmask, hi_bytes, lo, pos,
+    #  rec, hi, stream)
+    "vrs_split_pad": (_I, _P, _LL, _LL, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                      _P),
+    # (src_bytes, m, pos, src, out, out_v, stream)
+    "vrs_gather": (_I, _LL, _P, _P, _P, _P, _P),
 }
 
 

@@ -17,7 +17,13 @@
 // (src/shader/{upsweep,spine,downsweep}.slang). A count= sort adds one
 // launch before the passes, mask_pad_kernel (the pad, with keys at or past
 // the count read on the card written as 0xFFFFFFFF), and one after them,
-// restore_tail_kernel (the masked tail's keys back in place). K7 sorts
+// restore_tail_kernel (the masked tail's keys back in place). A sort of
+// 64-bit keys, or of 32-bit keys by a number of low bits that is no
+// multiple of the digit (CUB's end_bit), runs the kv carries on (masked
+// word, position) pairs instead: split_pad_kernel writes the low words,
+// the positions, (key, value) records and the high words, gather_kernel
+// fetches each sorted position's high word for the high-word passes and,
+// last, the whole keys and values. K7 sorts
 // each `block`-key block stably by the digit (key >> shift) & (radix - 1)
 // and writes the block's radix-bin histogram. The spine turns the
 // (nblocks, radix) histograms into the global exclusive digit offsets g
@@ -694,6 +700,148 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
+// Items a thread of split_pad_kernel or gather_kernel has in flight: item
+// base + u * blockDim.x for u < kItems, so that each load and store of a
+// warp covers 32 consecutive items (a gather's random loads all issued
+// before its first store).
+constexpr int kItems = 8;
+
+// The first buffers of the (word, position) path, in one pass over the
+// keys (and values): lo[i] = (the low word of keys[i]) & mask for i < c
+// and 0xFFFFFFFF for c <= i < size, pos[i] = i, c the live count (n
+// without a count); with REC, rec[i] = the whole key and its value, for
+// the output's gather to read with one random load: (low word, high word,
+// value, 0) for 64-bit keys (WIDE), (key, value) for 32-bit ones, zeros
+// past n; with hi_bytes 2 or 4 (64-bit keys by an end bit past 32), hi[i]
+// = (the high word of keys[i]) & hmask in that many bytes for i < c and
+// all ones for c <= i < size, for the high-word gather to read from a
+// dense array: 16 bits, which the L2 mostly holds, for an end bit up to
+// 48. The stable passes keep every key at or past c behind the live ones,
+// in input order, as mask_pad's tail: the low-word passes leave it last,
+// and its all-ones high words tie only with live ones ahead of it. Keys
+// past c (past n with REC) are not read.
+template <bool WIDE, bool REC>
+__global__ void __launch_bounds__(kCopyThreads)
+    split_pad_kernel(const long long* __restrict__ count, long long n,
+                     long long size, const uint32_t* __restrict__ keys,
+                     const uint32_t* __restrict__ vals, uint32_t mask,
+                     uint32_t hmask, int hi_bytes, uint32_t* __restrict__ lo,
+                     uint32_t* __restrict__ pos, uint32_t* __restrict__ rec,
+                     void* __restrict__ hi) {
+  const long long c = count ? live_count(count, n) : n;
+  const long long end = REC ? n : c;  // the keys read
+  const long long step = blockDim.x;
+  const long long stride = step * kItems * gridDim.x;
+  for (long long base = step * kItems * blockIdx.x + threadIdx.x;
+       base < size; base += stride) {
+    uint32_t l[kItems], h[kItems], v[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const long long i = base + u * step;
+      if constexpr (WIDE) {
+        const uint2 k = i < end
+                            ? __ldcs(reinterpret_cast<const uint2*>(keys) + i)
+                            : make_uint2(0u, 0u);
+        l[u] = k.x;
+        h[u] = k.y;
+      } else {
+        l[u] = i < end ? __ldcs(keys + i) : 0u;
+      }
+      if constexpr (REC) v[u] = i < n ? __ldcs(vals + i) : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const long long i = base + u * step;
+      if (i >= size) break;
+      if constexpr (REC && WIDE)
+        reinterpret_cast<uint4*>(rec)[i] = make_uint4(l[u], h[u], v[u], 0u);
+      else if constexpr (REC)
+        reinterpret_cast<uint2*>(rec)[i] = make_uint2(l[u], v[u]);
+      if constexpr (WIDE) {
+        const uint32_t hw = i < c ? h[u] & hmask : ~0u;
+        if (hi_bytes == 2)
+          static_cast<uint16_t*>(hi)[i] = uint16_t(hw);
+        else if (hi_bytes == 4)
+          static_cast<uint32_t*>(hi)[i] = hw;
+      }
+      __stcs(lo + i, i < c ? l[u] & mask : ~0u);
+      __stcs(pos + i, uint32_t(i));
+    }
+  }
+}
+
+// The unsigned type of B bytes.
+template <int B>
+struct Word;
+template <>
+struct Word<2> {
+  using T = uint16_t;
+};
+template <>
+struct Word<4> {
+  using T = uint32_t;
+};
+template <>
+struct Word<8> {
+  using T = unsigned long long;
+};
+template <>
+struct Word<16> {
+  using T = uint4;
+};
+
+// One gather of the (word, position) path by the sorted positions pos,
+// for j < m, from src of B bytes an item: out[j] = src[pos[j]], widened
+// to 32 bits if narrower; with KV (src split_pad's records: a 32-bit key
+// and its value, B = 8, or a 64-bit key, its value and a pad word, B =
+// 16) out[j] = the record's key and out_v[j] = its value. Two gathers a
+// sort: the high-word passes' keys from split_pad's high words (masked,
+// and all ones for the tail and the pads already; m the padded size), and
+// last the sorted keys (and values) from the keys or the records (m = n;
+// a count= tail is at its own positions already). The random loads are
+// the cost (about a millisecond for 2^25 of them from HBM, whatever their
+// width up to 16 bytes), so they go to L2 only and are all issued before
+// the first store, and the streamed positions and outputs are marked to
+// leave L2 first.
+template <int B, bool KV>
+__global__ void __launch_bounds__(kCopyThreads)
+    gather_kernel(long long m, const uint32_t* __restrict__ pos,
+                  const typename Word<B>::T* __restrict__ src,
+                  typename Word<KV ? B / 2 : (B < 4 ? 4 : B)>::T* __restrict__
+                      out,
+                  uint32_t* __restrict__ out_v) {
+  const long long step = blockDim.x;
+  const long long stride = step * kItems * gridDim.x;
+  for (long long base = step * kItems * blockIdx.x + threadIdx.x; base < m;
+       base += stride) {
+    uint32_t q[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const long long i = base + u * step;
+      q[u] = i < m ? __ldcs(pos + i) : 0u;
+    }
+    typename Word<B>::T r[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u)
+      if (base + u * step < m) r[u] = __ldcg(src + q[u]);
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const long long i = base + u * step;
+      if (i >= m) break;
+      if constexpr (KV && B == 16) {
+        __stcs(out + i, (static_cast<unsigned long long>(r[u].y) << 32) |
+                            r[u].x);
+        __stcs(out_v + i, r[u].z);
+      } else if constexpr (KV) {
+        __stcs(out + i, uint32_t(r[u]));
+        __stcs(out_v + i, uint32_t(r[u] >> 32));
+      } else {
+        __stcs(out + i, r[u]);
+      }
+    }
+  }
+}
+
 // Thread blocks of a mask_pad or restore_tail launch: enough to fill every
 // SM (kCopyBlocksPerSm of kCopyThreads), and no more than `words` need.
 int copy_grid(long long words, unsigned* grid) {
@@ -891,6 +1039,85 @@ int vrs_restore_tail(const void* count, long long n, const void* keys,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(count), n,
       static_cast<const uint32_t*>(keys), static_cast<uint32_t*>(out));
+  return int(cudaGetLastError());
+}
+
+// The (word, position) path's first buffers: lo and pos, `size` words
+// each; with `vals` not null the records (`size` of 16 bytes with `wide`,
+// else 8); with `hi_bytes` 2 or 4 (64-bit keys only) the high words masked
+// by `hmask` into `hi`, `size` of that many bytes. The masks are 32-bit
+// patterns passed as int. From the n keys (uint64 with `wide`, else
+// uint32), the values, and, if `count` is not null, the int64 count on the
+// card.
+int vrs_split_pad(int wide, const void* count, long long n, long long size,
+                  const void* keys, const void* vals, int mask, int hmask,
+                  int hi_bytes, void* lo, void* pos, void* rec, void* hi,
+                  void* stream) {
+  if (n < 0 || size < n || size > 0x100000000LL ||
+      (hi_bytes && (!wide || !hi || (hi_bytes != 2 && hi_bytes != 4))) ||
+      (vals && (reinterpret_cast<uintptr_t>(rec) & (wide ? 15 : 7))))
+    return int(cudaErrorInvalidValue);
+  if (size == 0) return int(cudaSuccess);
+  unsigned grid = 0;
+  const int e = copy_grid(size, &grid);
+  if (e != int(cudaSuccess)) return e;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto cnt = static_cast<const long long*>(count);
+  auto k = static_cast<const uint32_t*>(keys);
+  auto v = static_cast<const uint32_t*>(vals);
+  auto l = static_cast<uint32_t*>(lo);
+  auto p = static_cast<uint32_t*>(pos);
+  auto r = static_cast<uint32_t*>(rec);
+#define VRS_SPLIT(W, R)                                                   \
+  split_pad_kernel<W, R><<<grid, kCopyThreads, 0, st>>>(                 \
+      cnt, n, size, k, v, uint32_t(mask), uint32_t(hmask), hi_bytes, l, p, \
+      r, hi)
+  if (wide && vals)
+    VRS_SPLIT(true, true);
+  else if (wide)
+    VRS_SPLIT(true, false);
+  else if (vals)
+    VRS_SPLIT(false, true);
+  else
+    VRS_SPLIT(false, false);
+#undef VRS_SPLIT
+  return int(cudaGetLastError());
+}
+
+// A gather of the (word, position) path by the m positions pos, from
+// `src` of `src_bytes` an item: without `out_v`, split_pad's high words
+// (2 or 4, widened to uint32) or keys (4 or 8); with `out_v`, split_pad's
+// records (8 for uint32 keys, 16 for uint64), their keys into `out` and
+// their values into `out_v`.
+int vrs_gather(int src_bytes, long long m, const void* pos, const void* src,
+               void* out, void* out_v, void* stream) {
+  const bool rec = out_v != nullptr;
+  const bool ok = rec ? src_bytes == 8 || src_bytes == 16
+                      : src_bytes == 2 || src_bytes == 4 || src_bytes == 8;
+  if (m < 0 || !ok || (reinterpret_cast<uintptr_t>(src) & (src_bytes - 1)))
+    return int(cudaErrorInvalidValue);
+  if (m == 0) return int(cudaSuccess);
+  unsigned grid = 0;
+  const int e = copy_grid(m, &grid);
+  if (e != int(cudaSuccess)) return e;
+  auto st = static_cast<cudaStream_t>(stream);
+  auto p = static_cast<const uint32_t*>(pos);
+  auto ov = static_cast<uint32_t*>(out_v);
+#define VRS_GATHER(B, KV)                                                 \
+  gather_kernel<B, KV><<<grid, kCopyThreads, 0, st>>>(                    \
+      m, p, static_cast<const Word<B>::T*>(src),                          \
+      static_cast<Word<KV ? B / 2 : (B < 4 ? 4 : B)>::T*>(out), ov)
+  if (rec && src_bytes == 16)
+    VRS_GATHER(16, true);
+  else if (rec)
+    VRS_GATHER(8, true);
+  else if (src_bytes == 8)
+    VRS_GATHER(8, false);
+  else if (src_bytes == 4)
+    VRS_GATHER(4, false);
+  else
+    VRS_GATHER(2, false);
+#undef VRS_GATHER
   return int(cudaGetLastError());
 }
 

@@ -14,15 +14,18 @@ analogs of the reference host library's entry points
 
 Keys may be uint32, int32, float32, or (beyond the reference's uint32-only
 API, as in the JAX package) uint64, int64 and float64, which sort as (hi,
-lo) uint32 word pairs on the network and the reference backend; the radix
-backend refuses them.
+lo) uint32 word pairs on the network, as (word, position) pairs on the
+radix backend (`radix.sort_u64`) and as one torch.sort on the reference
+backend. uint32 and uint64 keys may be sorted by their low `end_bit` bits
+alone (CUB's end_bit: stably, the keys back whole), on every backend.
 
 Each sorter picks one backend per kind of sort (keys, stable key-value,
 stable=False key-value) from its max_n: `backend`, `backend_kv` and
 `backend_kvns`. A named backend serves every kind; 'auto' is the
 reference backend below the kind's measured cut and the kind's engine
 from it (`AUTO`, `_pick_backend`), as the JAX package's 'auto' is XLA's
-sort below its cuts and the network from them.
+sort below its cuts and the network from them. A 64-bit call also weighs
+its number of radix passes (`AUTO_MAX_PASSES64`, `Sorter.backend_for`).
 
 A sorter lives on one device, the card unless the caller asks for the CPU.
 A tensor on another device is refused, never moved. PyTorch runs eagerly,
@@ -48,13 +51,13 @@ from ..utils.timing import StageTimes, time_fn
 # cut the engine; a cut of None means the engine did not beat the
 # reference at 2^25, so 'auto' is the reference at every n. The engine is
 # the kernel backend with the most GItems/s at 2^25 among those that sort
-# the kind (network and radix for 32-bit keys; the network alone for
-# 64-bit keys, which radix refuses); the cut is the smallest swept n
-# (2^14..2^25) from which it beats the reference at every larger swept
-# size (chip_smoke.crossover), taken on the median of three sweeps in one
-# run (chip_smoke.median_sweeps), since below 2^22 one sweep's times move
-# up to 2x. The `[sweep-median]` lines of chip_smoke.py on one NVIDIA
-# H100 80GB HBM3, 700.00 W (PERF.md section 5, call 2):
+# the kind (network and radix for 32-bit keys; for 64-bit keys radix, since
+# the network lost to the reference at every size); the cut is the
+# smallest swept n (2^14..2^25) from which it beats the reference at every
+# larger swept size (chip_smoke.crossover), taken on the median of three
+# sweeps in one run (chip_smoke.median_sweeps), since below 2^22 one
+# sweep's times move up to 2x. The `[sweep-median]` lines of chip_smoke.py
+# on one NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 5, call 2):
 #   uint32, crossover vs reference: radix_keys, _kv, _kvns 2^23; network
 #     null; at 2^23 radix 0.467 / 0.696 / 0.699 ms (keys / kv / kvns)
 #     against the reference's 0.576 / 0.706 / 0.717, at 2^22 0.389 /
@@ -63,15 +66,33 @@ from ..utils.timing import StageTimes, time_fn
 #     1.969 / 3.010 / 3.013;
 #   uint64, crossover vs reference: network_keys, _kv, _kvns null; at
 #     2^25 the network 9.178 / 19.873 / 16.016 ms, the reference 4.703 /
-#     5.736 / 5.736.
+#     5.736 / 5.736 (an earlier run of the 64-bit sweep, which then timed
+#     the network: it now times radix in its place, below).
+# uint64 through radix, by end_bit 40, 48, 56 and 64 (5 to 8 passes; the
+# same sweeps on the (word, position) path, PERF.md section 6):
+#   crossover vs reference, keys / kv / kvns: 40 bits 2^21 / 2^22 / 2^21,
+#     48 bits 2^22 / 2^23 / 2^22, 56 bits 2^22 / 2^22 / 2^23, 64 bits
+#     null; at 2^25 radix against the reference, keys and kv: 40 bits
+#     4.543 / 5.811 and 4.947 / 6.839 ms, 48 bits 5.000 / 5.910 and
+#     5.419 / 6.930, 56 bits 5.756 / 6.005 and 6.208 / 7.032, 64 bits
+#     6.217 / 4.762 and 6.688 / 5.786 (kvns as kv). A later single
+#     sweep: 56 bits 5.755 / 6.068 and 6.159 / 7.073, every 5-7-pass
+#     crossover 2^23, none at 64 bits.
+# So a 64-bit kind's cut is the largest of its crossovers at 5-7 passes,
+# and radix serves at most 7 (`AUTO_MAX_PASSES64`).
 AUTO = {
     ("keys", False): ("radix", 1 << 23),
     ("kv", False): ("radix", 1 << 23),
     ("kvns", False): ("radix", 1 << 23),
-    ("keys", True): ("network", None),
-    ("kv", True): ("network", None),
-    ("kvns", True): ("network", None),
+    ("keys", True): ("radix", 1 << 22),
+    ("kv", True): ("radix", 1 << 23),
+    ("kvns", True): ("radix", 1 << 23),
 }
+# 'auto' on a CUDA device for 64-bit keys: the most radix passes (at 8-bit
+# digits, ceil(end_bit / 8)) a call may take and still go to radix, the
+# most at which radix beat the reference at 2^25 in every kind; a call of
+# more goes to the reference (`Sorter.backend_for`).
+AUTO_MAX_PASSES64 = 7
 
 
 def _pick_backend(cfg: SortConfig, device: torch.device,
@@ -193,13 +214,32 @@ class Sorter:
         self.backend, self.backend_kv, self.backend_kvns = (
             _pick_backend(self.config, self.device, self.max_n, kind,
                           self.wide) for kind in ("keys", "kv", "kvns"))
-        if self.wide and self.backend == "radix":
-            raise NotImplementedError(
-                "the radix backend does not support 64-bit keys; use "
-                "backend='network' (or 'auto'/'reference')")
 
-    def _backend_pairs(self, stable: bool) -> str:
-        return self.backend_kv if stable else self.backend_kvns
+    def backend_for(self, kind: str, end_bit: int | None = None) -> str:
+        """The backend of one call of `kind` ('keys', 'kv' or 'kvns') by
+        bits [0, end_bit) (None: every bit): the kind's backend, except
+        that 'auto' sends a 64-bit call of more radix passes than
+        `AUTO_MAX_PASSES64` to the reference."""
+        backend = {"keys": self.backend, "kv": self.backend_kv,
+                   "kvns": self.backend_kvns}[kind]
+        if (backend == "radix" and self.config.backend == "auto"
+                and self.wide and radix.num_passes(
+                    end_bit or 64, self.config) > AUTO_MAX_PASSES64):
+            return "reference"
+        return backend
+
+    def _end_bit(self, end_bit: int | None) -> int | None:
+        """`end_bit` checked: 1 to the key width, for uint32 and uint64
+        keys only; None (every bit) for None or the width."""
+        if end_bit is None:
+            return None
+        if self.key_dtype not in (torch.uint32, torch.uint64):
+            raise ValueError(f"end_bit orders the bits of unsigned keys; "
+                             f"the keys are {self.key_dtype}")
+        width = 64 if self.wide else 32
+        if not 1 <= end_bit <= width:
+            raise ValueError(f"end_bit {end_bit} outside 1..{width}")
+        return None if end_bit == width else end_bit
 
     # -- storage sizing (analog of h.in:279-308) ---------------------------
 
@@ -215,13 +255,22 @@ class Sorter:
         output keys (and the gathered values). 64-bit keys, any backend:
         the padded (hi, lo) word buffers (plus the index tiebreak and
         values for key-value) and the 8-byte input and output keys, as in
-        the JAX package. The backend sized is the one the sort runs:
-        `backend_kv` for key-value.
+        the JAX package; on radix the (word, position) path's two
+        ping-pong pairs of padded word and position buffers, one pass's
+        tables, the 16-bit high words of an end bit up to 48 and, for
+        key-value, the 16-byte (key, value) records, which also bound the
+        output's gather. The backend sized is the kind's: `backend_kv`
+        for key-value.
         """
+        backend = self.backend_kv if key_value else self.backend
+        if self.wide and backend == "radix":
+            cfg = self.config
+            n = round_up(self.max_n, cfg.block)
+            tables = 2 * (n // cfg.block) * cfg.radix + 2 * cfg.radix
+            return 4 * ((8 if key_value else 4) * n + tables) + 2 * n
         if self.wide:
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (4 if key_value else 2) + 2 * 8 * self.max_n
-        backend = self.backend_kv if key_value else self.backend
         if backend == "network":
             np2 = 1 << max(8, (self.max_n - 1).bit_length())
             return 4 * np2 * (3 if key_value else 1)
@@ -256,29 +305,39 @@ class Sorter:
 
     # -- public API --------------------------------------------------------
 
-    def sort(self, keys: torch.Tensor, count=None) -> torch.Tensor:
+    def sort(self, keys: torch.Tensor, count=None,
+             end_bit: int | None = None) -> torch.Tensor:
         """Ascending sort. `count` (int or 0-d device tensor) sorts only the
         prefix and leaves the tail untouched: the reference's indirect
-        path. With SortConfig.adaptive and no `count`, sorted,
-        reverse-sorted and constant keys skip the engine."""
-        with timing.span("vrs.sort", n=keys.numel(), backend=self.backend,
+        path. `end_bit` (uint32 and uint64 keys, 1 to the width) orders
+        the keys by bits [0, end_bit) alone, stably, and gives them back
+        whole, as CUB's end_bit. With SortConfig.adaptive and neither,
+        sorted, reverse-sorted and constant keys skip the engine."""
+        end_bit = self._end_bit(end_bit)
+        backend = self.backend_for("keys", end_bit)
+        with timing.span("vrs.sort", n=keys.numel(), backend=backend,
                          count=count is not None):
-            return self._sort(keys, count)
+            return self._sort(keys, count, end_bit, backend)
 
-    def _sort(self, keys: torch.Tensor, count) -> torch.Tensor:
+    def _sort(self, keys: torch.Tensor, count, end_bit: int | None,
+              backend: str) -> torch.Tensor:
         self._check(keys)
         u = self._encode(keys)
+        if end_bit is not None:  # unsigned keys: no encoding
+            return self._sort_bits(u, None, count, end_bit, backend)
         if count is None:
-            slow = self._sort64 if self.wide else self._sort32
+            def slow(u):
+                return (self._sort64(u, backend) if self.wide
+                        else self._sort32(u, backend))
             return self._decode(_adaptive_sort(u, slow) if self.config.adaptive
                                 else slow(u))
         if self.wide:
-            return self._decode(self._sort64(u, count))
+            return self._decode(self._sort64(u, backend, count))
         cnt = bitops.count_tensor(count, self.device)
-        _served(self.backend, u.numel())
-        if self.backend == "reference":
+        _served(backend, u.numel())
+        if backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
-        if self.backend == "radix":  # the count masks in the pad's kernel
+        if backend == "radix":  # the count masks in the pad's kernel
             return self._decode(radix.sort_u32(u, count=cnt,
                                                config=self.config))
         with timing.span("vrs.count_mask"):
@@ -293,19 +352,18 @@ class Sorter:
             k = bitops.select_u32(live, k, u)
         return self._decode(k)
 
-    def _sort32(self, u: torch.Tensor) -> torch.Tensor:
+    def _sort32(self, u: torch.Tensor, backend: str) -> torch.Tensor:
         """Keys-only sort of encoded uint32 keys on `backend`."""
-        _served(self.backend, u.numel())
-        if self.backend == "network":
+        _served(backend, u.numel())
+        if backend == "network":
             return bitonic.sort_u32(u, chunk=self.config.chunk_keys)
-        if self.backend == "radix":
+        if backend == "radix":
             return radix.sort_u32(u, config=self.config)
         return reference.sort_keys(u)
 
     def _sort_pairs32(self, u: torch.Tensor, values: torch.Tensor,
-                      stable: bool):
-        """Key-value sort of encoded uint32 keys on the kind's backend."""
-        backend = self._backend_pairs(stable)
+                      stable: bool, backend: str):
+        """Key-value sort of encoded uint32 keys on `backend`."""
         _served(backend, u.numel())
         if backend == "network":
             return bitonic.sort_pairs_u32(u, values,
@@ -316,7 +374,8 @@ class Sorter:
         return reference.sort_pairs(u, values)
 
     def sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
-                       count=None, stable: bool = True):
+                       count=None, stable: bool = True,
+                       end_bit: int | None = None):
         """Ascending key-value sort; values ride as a separate uint32 buffer.
 
         stable=True matches the reference's std::stable_sort contract
@@ -326,32 +385,37 @@ class Sorter:
         are stable either way, which is also a valid answer to
         stable=False: so under 'auto' the order of equal keys may change
         at a cut, and only the multiset of pairs per key is the contract.
-        With SortConfig.adaptive, keys already in non-decreasing order
-        come back as they are (with copies), the stable answer and a
-        valid non-stable one.
+        `end_bit` as in `sort`: a call with it is stable on every backend.
+        With SortConfig.adaptive and neither `count` nor `end_bit`, keys
+        already in non-decreasing order come back as they are (with
+        copies), the stable answer and a valid non-stable one.
         """
+        end_bit = self._end_bit(end_bit)
+        backend = self.backend_for("kv" if stable else "kvns", end_bit)
         with timing.span("vrs.sort_key_value", n=keys.numel(),
-                         backend=self._backend_pairs(stable),
-                         count=count is not None):
-            return self._sort_key_value(keys, values, count, stable)
+                         backend=backend, count=count is not None):
+            return self._sort_key_value(keys, values, count, stable,
+                                        end_bit, backend)
 
     def _sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
-                        count, stable: bool):
+                        count, stable: bool, end_bit: int | None,
+                        backend: str):
         self._check(keys, values)
         u = self._encode(keys)
+        if end_bit is not None:  # unsigned keys: no encoding
+            return self._sort_bits(u, values, count, end_bit, backend)
         if count is None:
             def slow(u, v):
                 if self.wide:
-                    return self._sort_pairs64(u, v, None, stable)
-                return self._sort_pairs32(u, v, stable)
+                    return self._sort_pairs64(u, v, None, stable, backend)
+                return self._sort_pairs32(u, v, stable, backend)
             k, v = (_adaptive_sort_pairs(u, values, slow)
                     if self.config.adaptive else slow(u, values))
             return self._decode(k), v
         if self.wide:
-            k, v = self._sort_pairs64(u, values, count, stable)
+            k, v = self._sort_pairs64(u, values, count, stable, backend)
             return self._decode(k), v
         cnt = bitops.count_tensor(count, self.device)
-        backend = self._backend_pairs(stable)
         _served(backend, u.numel())
         if backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
@@ -380,19 +444,23 @@ class Sorter:
     # -- 64-bit keys: (hi, lo) words (JAX sorter.py:234-262, 287-315,
     # 340-367, 404-437) ----------------------------------------------------
 
-    def _sort64(self, u: torch.Tensor, count=None) -> torch.Tensor:
-        """Keys-only sort of encoded uint64 keys: on the network the (hi,
-        lo) words ride the non-stable (k, v) carry, whose order is theirs.
-        With `count`, keys past it are masked to the u64 maximum: as for
+    def _sort64(self, u: torch.Tensor, backend: str,
+                count=None) -> torch.Tensor:
+        """Keys-only sort of encoded uint64 keys on `backend`: on the
+        network the (hi, lo) words ride the non-stable (k, v) carry, whose
+        order is theirs; radix takes the count itself. With `count` on the
+        network, keys past it are masked to the u64 maximum: as for
         32-bit keys, genuine maximum keys are bitwise interchangeable with
         the mask in the output, so no index carry is needed."""
         chunk = self.config.chunk_carry
         cnt = None if count is None else bitops.count_tensor(count,
                                                               self.device)
-        _served(self.backend, u.numel())
-        if self.backend == "reference":
+        _served(backend, u.numel())
+        if backend == "reference":
             return (reference.sort_keys64(u) if cnt is None
                     else reference.sort_keys64_count(u, cnt))
+        if backend == "radix":
+            return radix.sort_u64(u, count=cnt, config=self.config)
         if cnt is None:
             hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(u), chunk=chunk,
                                             stable=False)
@@ -406,17 +474,20 @@ class Sorter:
             return bitops.select_u64(live, k, u)
 
     def _sort_pairs64(self, u: torch.Tensor, values: torch.Tensor, count,
-                      stable: bool):
-        """Key-value sort of encoded uint64 keys: W4_BIG (stable) or W3 on
-        the network; `count` masks as `sort_key_value` does."""
+                      stable: bool, backend: str):
+        """Key-value sort of encoded uint64 keys on `backend`: W4_BIG
+        (stable) or W3 on the network, where `count` masks as
+        `sort_key_value` does; radix is stable either way."""
         chunk = self.config.chunk_carry
         cnt = None if count is None else bitops.count_tensor(count,
                                                               self.device)
-        backend = self._backend_pairs(stable)
         _served(backend, u.numel())
         if backend == "reference":
             return (reference.sort_pairs64(u, values) if cnt is None
                     else reference.sort_pairs64_count(u, values, cnt))
+        if backend == "radix":
+            return radix.sort_pairs_u64(u, values, count=cnt,
+                                        config=self.config)
         if cnt is None:
             hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(u), values,
                                                chunk=chunk, stable=stable)
@@ -434,6 +505,50 @@ class Sorter:
         with timing.span("vrs.count_mask"):
             return (bitops.select_u64(live, k, u),
                     bitops.select_u32(live, v, values))
+
+    def _sort_bits(self, u: torch.Tensor, values, count, end_bit: int,
+                   backend: str):
+        """A sort of uint32 or uint64 keys (and values) by bits [0,
+        end_bit), stable, the keys back whole: on radix its driver; on the
+        reference backend `reference.sort_bits`; on the network the masked
+        keys (the maximum past the count) and their positions through the
+        non-stable pair carry, whose (key, position) order is the stable
+        one since the positions are distinct, then the keys and the values
+        gathered by the sorted positions."""
+        cnt = bitops.count_tensor(count, self.device)
+        _served(backend, u.numel())
+        if backend == "radix":
+            if values is None:
+                sort = radix.sort_u64 if self.wide else radix.sort_u32
+                return sort(u, count=cnt, config=self.config,
+                            end_bit=end_bit)
+            sort = radix.sort_pairs_u64 if self.wide else radix.sort_pairs_u32
+            return sort(u, values, count=cnt, config=self.config,
+                        end_bit=end_bit)
+        if backend == "reference":
+            return reference.sort_bits(u, values, end_bit, cnt)
+        masked = bitops.low_bits(u, end_bit)
+        if cnt is not None:
+            with timing.span("vrs.count_mask"):
+                live = bitops.in_range(u, cnt)
+                masked = (bitops.select_u64(live, masked,
+                                            bitops.max_like_u64(masked))
+                          if self.wide else bitops.select_u32(
+                              live, masked, bitops.max_like_u32(masked)))
+        pos = torch.arange(u.numel(), dtype=torch.int32,
+                           device=self.device).view(torch.uint32)
+        chunk = self.config.chunk_carry
+        if self.wide:
+            order = bitonic.sort_pairs_w64(*bitops.split_u64(masked), pos,
+                                           chunk=chunk, stable=False)[-1]
+        else:
+            order = bitonic.sort_pairs_u32(masked, pos, chunk=chunk,
+                                           stable=False)[-1]
+        order = bitops.widen_u32(order)
+        signed = torch.int64 if self.wide else torch.int32
+        k = u.view(signed)[order].view(u.dtype)
+        return k if values is None else (
+            k, values.view(torch.int32)[order].view(torch.uint32))
 
     # -- timing queries (analog of the timestamps, h.in:39-50) -------------
 
@@ -472,18 +587,20 @@ class Sorter:
         """Times of `sort(keys)` on the card: totals, and where `backend`
         (the keys kind's) is the network or radix per stage
         (`bitonic.stage_times*`, `radix.stage_times`, whose dict lands in
-        `extra`). The reference backend fills the totals only. A CPU
-        sorter raises: nothing here times the CPU."""
+        `extra`). The reference backend, and radix on 64-bit keys, fill
+        the totals only. A CPU sorter raises: nothing here times the
+        CPU."""
         self._check(keys)
         t = self._totals(self.sort, (keys,), iters)
         u = self._encode(keys)
-        if self.backend == "radix":
+        backend = self.backend_for("keys")
+        if backend == "radix" and not self.wide:
             stage = radix.stage_times(u, self.config, iters=iters)
             t.upsweep_ns = stage["upsweep"] * 1e9
             t.spine_ns = stage["spine"] * 1e9
             t.downsweep_ns = stage["downsweep"] * 1e9
             t.extra = stage
-        elif self.backend == "network":
+        elif backend == "network":
             stage = (bitonic.stage_times_w64(*bitops.split_u64(u),
                                              chunk=self.config.chunk_carry,
                                              iters=iters)
@@ -505,7 +622,7 @@ class Sorter:
         t = self._totals(lambda k, v: self.sort_key_value(k, v,
                                                           stable=stable),
                          (keys, values), iters)
-        if self._backend_pairs(stable) != "network":
+        if self.backend_for("kv" if stable else "kvns") != "network":
             return t
         u = self._encode(keys)
         chunk = self.config.chunk_carry

@@ -113,6 +113,15 @@ def merge_u64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
             | widen_u32(lo)).view(torch.uint64)
 
 
+def low_bits(u: torch.Tensor, bits: int) -> torch.Tensor:
+    """uint32 or uint64 words with every bit from `bits` up cleared (CUB's
+    end_bit), through the signed view; u itself at the full width."""
+    signed = torch.int64 if u.dtype == torch.uint64 else torch.int32
+    if bits >= 8 * u.element_size():
+        return u
+    return (u.view(signed) & ((1 << bits) - 1)).view(u.dtype)
+
+
 def max_like_u64(x: torch.Tensor) -> torch.Tensor:
     """A uint64 tensor like x, filled with 2^64 - 1 (the key sentinel)."""
     return torch.full_like(x.view(torch.int64), -1).view(torch.uint64)

@@ -15,7 +15,8 @@ their signed view with the sign bit flipped (`bitops.decode_i32` /
 `decode_i64`), which has the unsigned order and the same width, and the
 sorted values are flipped back (`encode_i32` / `encode_i64`). A keys sort
 uses the sorted values alone; a pair sort is one stable sort whose
-indices gather the values, never the keys.
+indices gather the values, never the keys; a sort by the low `end_bit`
+bits (`sort_bits`) gathers the keys too, since they come back whole.
 """
 
 from __future__ import annotations
@@ -23,8 +24,8 @@ from __future__ import annotations
 import torch
 
 from .bitops import (decode_i32, decode_i64, encode_i32, encode_i64,
-                     in_range, max_like_u32, max_like_u64, select_u32,
-                     select_u64)
+                     in_range, low_bits, max_like_u32, max_like_u64,
+                     select_u32, select_u64)
 
 # uint dtype -> (to the signed view with the same order, and back)
 _SIGNED = {torch.uint32: (decode_i32, encode_i32),
@@ -101,3 +102,23 @@ def sort_pairs64_count(keys: torch.Tensor, values: torch.Tensor,
     masked = select_u64(live, keys, max_like_u64(keys))
     k, v = sort_pairs64(masked, values)
     return select_u64(live, k, keys), select_u32(live, v, values)
+
+
+def sort_bits(keys: torch.Tensor, values: torch.Tensor | None, end_bit: int,
+              count: torch.Tensor | None = None):
+    """Stable ascending sort of uint32 or uint64 keys (and uint32 values)
+    by bits [0, end_bit) alone (CUB's end_bit), the keys back whole: one
+    stable sort of the masked keys, whose indices gather the keys and the
+    values. With `count` the keys at or past it are masked to the maximum
+    and sort behind the live ones in input order, so the tail comes back
+    in place."""
+    wide = keys.dtype == torch.uint64
+    masked = low_bits(keys, end_bit)
+    if count is not None:
+        live = in_range(keys, count)
+        masked = (select_u64(live, masked, max_like_u64(masked)) if wide
+                  else select_u32(live, masked, max_like_u32(masked)))
+    perm = _sort(masked, stable=True)[1]
+    k = keys.view(torch.int64 if wide else torch.int32)[perm].view(
+        keys.dtype)
+    return k if values is None else (k, _take(values, perm))
