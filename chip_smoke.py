@@ -25,8 +25,10 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      two digits at every shift and one key only, then at 301 default
      blocks (no multiple of K7's resident grid) and at the main path's
      2^25 shapes on uniform keys and two digits, keys and key-value, with
-     a ragged last block of sentinel pads; the count= mask-pad and tail
-     at each size, and the 64-bit path's split-pad and gather (uint64 and
+     a ragged last block of sentinel pads; K7's first pass on the
+     caller's unpadded buffers (every count and none, aligned and one word
+     in) and the count= tail at each size, and the 64-bit path's
+     split-pad and gather (uint64 and
      uint32 keys, end bits 12 to 64, counts, aligned and one word in) at
      2^20, 301 blocks and 2^25;
   4. main path, once per backend ('network', 'radix', 'reference', then
@@ -37,7 +39,8 @@ Phases, each of which fails the run (nonzero exit) if it fails:
      bits (20 and 16) against numpy's stable order of the masked keys;
      each sort's launches, read from a launch recorder, must be those of
      the backend that serves the call (radix: K7, the spine and K8 once a
-     pass, ceil(end_bit / 8) passes, with the count= pad and tail, or on
+     pass, ceil(end_bit / 8) passes, the first K7 masked where a count,
+     a ragged n or an unaligned view needs it, with the count= tail, or on
      the (word, position) path the split-pad and one gather, two past 32
      bits; network: network kernels only; reference: none); each
      backend's run has a launch recorder of
@@ -251,11 +254,14 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
               "redesigned: digit from the key, one shared delta lookup a "
               "key, 512-key tiles with every load issued first; the spine "
               "one cluster launch"),
-    "mask_pad": ("radix count= mask-pad", RADIX_CU,
-                 "none: XLA ops (vulkan_radix_sort_tpu/models/sorter.py:374)",
-                 "new: the count= masks and the pad in one pass, 16-byte "
-                 "vectors (words for an unaligned input view), the count "
-                 "read on the card"),
+    "block_sort_first": ("K7 first pass, masked and unpadded", RADIX_CU,
+                         "none: XLA ops pad and mask (vulkan_radix_sort_tpu/"
+                         "models/sorter.py:374, ops/radix.py)",
+                         "new: K7's first launch on the caller's buffers, "
+                         "any length and alignment; keys at or past the "
+                         "count (read on the card) and the pads loaded as "
+                         "0xFFFFFFFF, values past n as 0; blocks below the "
+                         "count bulk-loaded"),
     "restore_tail": ("radix count= tail", RADIX_CU,
                      "none: XLA ops (vulkan_radix_sort_tpu/models/"
                      "sorter.py:387)",
@@ -275,8 +281,10 @@ KERNELS = {  # counter name -> (label, source, TPU kernel replaced, status)
 # the radix kernels in launch order; the spine is K8's column accumulation
 # (the TPU kernel's own), so the K8 row carries it
 RADIX_KERNELS = ("block_sort", "spine", "place")
-# a radix count= sort's one launch before the passes and one after them
-RADIX_COUNT_KERNELS = ("mask_pad", "restore_tail")
+# a radix sort's first K7 where it masks (a count, a ragged n or an
+# unaligned view; a record of `block_sort` with first="masked"), and a
+# count= sort's one launch after the passes
+RADIX_COUNT_KERNELS = ("block_sort_first", "restore_tail")
 # the (word, position) path's launch before the passes and its gathers
 RADIX_U64_KERNELS = ("split_pad", "gather")
 MERGE_KERNELS = ("local_gated",)
@@ -307,11 +315,12 @@ def sync(device) -> None:
 
 
 # Every launch counter name: the network kernels' (`bk.counters`), K7's,
-# the spine's, K8's, the radix count= pad and tail, and the (word,
-# position) path's split-pad and gather.
+# the spine's, K8's, K7's masked first passes (counted as K7 too), the
+# radix count= tail, and the (word, position) path's split-pad and
+# gather.
 LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
-                   "block_sort", "spine", "place", "mask_pad", "restore_tail",
-                   "split_pad", "gather")
+                   "block_sort", "spine", "place", "block_sort_first",
+                   "restore_tail", "split_pad", "gather")
 
 
 # -- phase 2: build ----------------------------------------------------------
@@ -325,8 +334,8 @@ LAUNCH_COUNTERS = ("chunk", "fused", "cross", "local", "gate", "local_gated",
 # fused_wide_kernel (w3); cross: the register-column kernel at every span from 1 to the
 # cap, 10 for keys and 8 for pairs and stable, the shared-memory one in
 # w3 and w4_big; block sort: keys or kv, 4 to 32 keys a thread, 4- or
-# 8-bit digits; placement: keys or kv; spine: one cluster size; the
-# count= mask-pad: keys or kv (the tail's kernel is no template); the
+# 8-bit digits, a first pass or not; placement: keys or kv; spine: one
+# cluster size (the count= tail's kernel is no template); the
 # split-pad: 32- or 64-bit keys, with or without records (the high words'
 # width is an argument); the gather: the 16- or 32-bit high words, or the
 # 32- or 64-bit keys from the keys or the records.
@@ -334,9 +343,9 @@ INSTANTIATIONS = {"chunk_kernel": 23, "chunk_merge_kernel": 6,
                   "chunk_wide_kernel": 5, "local_kernel": 34,
                   "cross_kernel": 2, "cross_cols_kernel": 26,
                   "fused_kernel": 24, "fused_wide_kernel": 5,
-                  "block_sort_kernel": 16, "place_kernel": 2,
-                  "spine_kernel": 1, "mask_pad_kernel": 2,
-                  "split_pad_kernel": 4, "gather_kernel": 5}
+                  "block_sort_kernel": 32, "place_kernel": 2,
+                  "spine_kernel": 1, "split_pad_kernel": 4,
+                  "gather_kernel": 5}
 
 
 def build() -> None:
@@ -506,8 +515,8 @@ def check_radix_kernels(sizes=RADIX_CHECK_SIZES,
     shapes (15 or 16 each). The
     spine and K8 take K7's plain output, so their runs are real; K8 takes
     the pass's shift and the spine kernel's offsets, as a radix pass
-    launches it. Then the count= mask-pad and tail, and the 64-bit
-    path's split-pad and gather, at each size
+    launches it. Then K7's first pass on the caller's buffers and the
+    count= tail, and the 64-bit path's split-pad and gather, at each size
     (`check_radix_count_kernels`, `check_radix_u64_kernels`). Returns max
     |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 5)
@@ -567,11 +576,13 @@ def count_cases(n: int) -> tuple[int, ...]:
 
 
 def check_radix_count_kernels(sizes, device="cuda") -> dict[str, int]:
-    """The count= mask-pad and tail kernels against their plain versions
-    on the same seeded inputs (keys with genuine 0xFFFFFFFF words), keys
-    and key-value, at each n of `sizes` padded to the default block and on
-    a view one word in (n - 1 keys, not 16-byte aligned), over
-    `count_cases`. The tail restores into a seeded buffer, as into the
+    """K7's first pass on the caller's unpadded buffers (`size=`, the
+    masked load) and the count= tail kernel against their plain versions
+    on the same seeded inputs (keys with genuine 0xFFFFFFFF words, some
+    beside the masked tail), keys and key-value, at each n of `sizes`
+    padded to the default block and on a view one word in (n - 1 keys,
+    not 16-byte aligned), without a count and over `count_cases`, at
+    shifts 0 and 24. The tail restores into a seeded buffer, as into the
     last pass's output. Returns max |err| per kernel."""
     gen = torch.Generator(device=device).manual_seed(SEED + 9)
     err = dict.fromkeys(RADIX_COUNT_KERNELS, 0)
@@ -579,26 +590,38 @@ def check_radix_count_kernels(sizes, device="cuda") -> dict[str, int]:
         size = round_up(n, RADIX.block)
         base_k, base_v = _radix_inputs(n, None, gen, device)
         base_k.view(torch.int32)[::97] = -1  # genuine 0xFFFFFFFF
+        c = path_count(n)
+        base_k.view(torch.int32)[c - 2:c + 2] = -1  # beside the tail
         for offset in (0, 1):
             m = n - offset
             keys = base_k[offset:]
             for kv in (False, True):
                 vals = base_v[offset:] if kv else None
-                for count in count_cases(m):
-                    cnt = torch.tensor(count, device=device)
-                    got = radix.mask_pad(keys, vals, cnt, size)
-                    want = radix.mask_pad_plain(keys, vals, cnt, size)
-                    if not kv:
-                        got, want = (got,), (want,)
-                    buf = torch.randint(
-                        -(1 << 31), 1 << 31, (size,), generator=gen,
-                        device=device, dtype=torch.int32).view(torch.uint32)
-                    want_t = radix.restore_tail_plain(buf.clone(), keys, cnt)
-                    got_t = radix.restore_tail(buf, keys, cnt)
+                for count in (None, *count_cases(m)):
+                    cnt = (None if count is None
+                           else torch.tensor(count, device=device))
+                    e = 0
+                    for shift in (0, 24):
+                        args = dict(shift=shift, config=RADIX, key_value=kv,
+                                    size=size, count=cnt)
+                        got = k7.block_sort(keys, vals, **args)
+                        want = k7.block_sort_plain(keys, vals, **args)
+                        e = max(e, _max_abs_err(got, want))
+                        del got, want
+                    errs = [("block_sort_first", e)]
+                    if cnt is not None:
+                        buf = torch.randint(
+                            -(1 << 31), 1 << 31, (size,), generator=gen,
+                            device=device,
+                            dtype=torch.int32).view(torch.uint32)
+                        want_t = radix.restore_tail_plain(buf.clone(), keys,
+                                                          cnt)
+                        got_t = radix.restore_tail(buf, keys, cnt)
+                        errs.append(("restore_tail",
+                                     _max_abs_err((got_t,), (want_t,))))
+                        del buf, want_t, got_t
                     sync(device)
-                    for name, e in (("mask_pad", _max_abs_err(got, want)),
-                                    ("restore_tail",
-                                     _max_abs_err((got_t,), (want_t,)))):
+                    for name, e in errs:
                         err[name] = max(err[name], e)
                         log(f"[kernel] n={m} {name} "
                             f"{'kv' if kv else 'keys'} count={count} "
@@ -608,7 +631,6 @@ def check_radix_count_kernels(sizes, device="cuda") -> dict[str, int]:
                                 f"{name} n={m} count={count} offset="
                                 f"{offset}: the kernel differs from its "
                                 "plain version")
-                    del got, want, buf, want_t, got_t
         del base_k, base_v
     return err
 
@@ -788,25 +810,33 @@ def _recorded(timer: timing.LaunchTimer) -> dict[str, int]:
     that stand in for them."""
     got = dict.fromkeys(LAUNCH_COUNTERS, 0)
     for rec in timer.records:
-        for k in rec["names"]:
+        for k in _counters(rec):
             got[k] += 1
     return got
 
 
+def _counters(rec) -> list[str]:
+    """A launch record's counter names, with `block_sort_first` for K7's
+    masked first pass."""
+    return rec["names"] + (["block_sort_first"]
+                           if rec.get("first") == "masked" else [])
+
+
 def radix_launches(config: SortConfig, width: int, end_bit: int | None,
-                   count: bool) -> dict[str, int]:
+                   count: bool, masked: bool) -> dict[str, int]:
     """The launches of one radix sort of `width`-bit keys by bits [0,
     end_bit) (every bit for None): K7, the spine and K8 once a pass; on
     the (word, position) path (64-bit keys, or an end bit no multiple of
-    the digit) the split-pad and one gather, two past 32 bits; else a
-    count= sort's mask-pad and tail."""
+    the digit) the split-pad and one gather, two past 32 bits; else the
+    first K7 masked where `masked` (a count, a ragged n or an unaligned
+    view) and a count= sort's tail."""
     bits = end_bit or width
     got = dict.fromkeys(LAUNCH_COUNTERS, 0)
     got.update(dict.fromkeys(RADIX_KERNELS, -(-bits // config.digit_bits)))
     if width == 64 or bits % config.digit_bits:
         got.update(split_pad=1, gather=2 if bits > 32 else 1)
-    elif count:
-        got.update(dict.fromkeys(RADIX_COUNT_KERNELS, 1))
+    else:
+        got.update(block_sort_first=int(masked), restore_tail=int(count))
     return got
 
 
@@ -815,8 +845,9 @@ def check_backend_launches(backend: str, got: dict[str, int],
                            radix_want: dict | None = None) -> None:
     """One sort's launches against the backend that ran it: radix launches
     `radix_want` (`radix_launches`) and nothing else; without it, K7,
-    the spine and K8 exactly num_passes times each, the count= pad and
-    tail once each or not at all, and no network kernel; the
+    the spine and K8 exactly num_passes times each, the masked first pass
+    and the count= tail once each or not at all, and no network kernel;
+    the
     network launches network kernels and no radix kernel; the reference
     backend launches no kernel."""
     net = sum(got.get(k, 0) for k in NETWORK_KERNELS + MERGE_KERNELS)
@@ -824,7 +855,7 @@ def check_backend_launches(backend: str, got: dict[str, int],
     cnt = {got.get(k, 0) for k in RADIX_COUNT_KERNELS}
     ok = {"radix": got == radix_want if radix_want else (
               net == 0 and set(rad.values()) == {config.num_passes}
-              and cnt in ({0}, {1})),
+              and cnt <= {0, 1}),
           "network": net > 0 and not any(rad.values()) and cnt == {0}
           and not any(got.get(k, 0) for k in RADIX_U64_KERNELS),
           "reference": not any(got.values())}[backend]
@@ -852,8 +883,11 @@ def held_runs(sorter, tag: str):
                                      else end_bit)
         with timing.LaunchTimer() as timer:
             out = fn(*args, **kw)
-        want = radix_launches(sorter.config, width, end_bit,
-                              kw.get("count") is not None)
+        count = kw.get("count") is not None
+        keys = args[0]
+        want = radix_launches(sorter.config, width, end_bit, count,
+                              count or keys.numel() % sorter.config.block != 0
+                              or keys.data_ptr() % 16 != 0)
         check_backend_launches(backend, _recorded(timer), sorter.config,
                                f"{tag}{kind} sort", want)
         return out
@@ -943,6 +977,14 @@ def main_path(n: int = N, n_ragged: int = N_RAGGED, device="cuda",
         return w
     _expect(run("keys", sorter.sort, dmk, count=cnt),
             want("sort count", prefix_sorted), f"{tag}keys count=")
+
+    def view_sorted():  # count= on a view one word in (not aligned)
+        w = mk[1:].copy()
+        w[:count] = np.sort(w[:count])
+        return w
+    _expect(run("keys", sorter.sort, dmk[1:], count=cnt),
+            want("sort count view", view_sorted),
+            f"{tag}keys count= one word in")
     for stable in (True, False):
         what = f"{tag}{'stable' if stable else 'non-stable'} kv count="
         gk, gv = run_kv(sorter.sort_key_value, dmk, dv, count=cnt,
@@ -1184,18 +1226,13 @@ def bound_ms(rec) -> tuple[float, str]:
     output written once) or int32 operations, whichever is larger. Network:
     every element of the units it runs, through its stages (W3's chunk
     kernel, a merge sort: `merge_ops`). K7: keys (and values) in and out
-    plus the histogram out. Spine: the histogram in, the run offsets and
+    plus the histogram out, a masked first pass as any pass (the bound
+    `k7_roofline` reads). Spine: the histogram in, the run offsets and
     g out. K8: keys (and values), the histogram and the run offsets in,
-    keys (and values) out. The count= pad: the c keys before the count (and
-    n values) in, the padded buffers out; the tail: the n - c keys past it
+    keys (and values) out. The count= tail: the n - c keys past the count
     in and out; c is `path_count`'s, the count of every count= sort timed
     here (the launch reads its own only on the card). The 64-bit path's
     split-pad and gather: `benchmark/roofline_u64.py`'s bytes."""
-    if rec["names"][0] == "mask_pad":
-        n = rec["n"]
-        c = path_count(n)
-        return _bound(4 * (c + rec["numel"]) + (
-            4 * (n + rec["numel"]) if rec["key_value"] else 0), 0)
     if rec["names"][0] == "restore_tail":
         n = rec["numel"]
         return _bound(8 * (n - path_count(n)), 0)
@@ -1260,17 +1297,12 @@ def plain_ms(rec) -> float:
 
         def plain():
             k8.spine_plain(hist)
-    elif rec["names"][0] in RADIX_COUNT_KERNELS:
-        m = rec.get("n", n)
-        keys = _u32_zeros(m)
-        vals = _u32_zeros(m) if rec.get("key_value") else None
-        cnt = torch.tensor(path_count(m), device="cuda")
+    elif rec["names"][0] == "restore_tail":
+        keys = _u32_zeros(n)
+        cnt = torch.tensor(path_count(n), device="cuda")
 
         def plain():
-            if rec["names"][0] == "mask_pad":
-                radix.mask_pad_plain(keys, vals, cnt, n)
-            else:
-                radix.restore_tail_plain(_u32_zeros(m), keys, cnt)
+            radix.restore_tail_plain(_u32_zeros(n), keys, cnt)
     elif rec["names"][0] in RADIX_U64_KERNELS:
         wide = rec.get("key_bytes", 8) == 8
         keys = torch.zeros(rec.get("n", n), device="cuda",
@@ -1296,9 +1328,14 @@ def plain_ms(rec) -> float:
         keys, vals = _radix_inputs(n, None, gen, "cuda")
         vals = vals if kv else None
         if rec["names"][0] == "block_sort":
+            # a masked first pass: its n keys, padded by the plain version
+            first = ({"size": n} if rec.get("first") == "masked" else {})
+            m = rec.get("n", n)
+
             def plain():
-                k7.block_sort_plain(keys, vals, shift=rec["shift"],
-                                    config=cfg, key_value=kv)
+                k7.block_sort_plain(keys[:m], vals[:m] if kv else None,
+                                    shift=rec["shift"], config=cfg,
+                                    key_value=kv, **first)
         else:
             out = k7.block_sort(keys, vals, shift=0, config=cfg,
                                 key_value=kv)
@@ -1498,7 +1535,7 @@ def kernel_times(sorts, by_mode: bool = False) -> tuple[dict, list]:
         lm = (library_ms(rec) if i < one_run
               and rec["names"][0] in LIBRARY_KERNELS else None)
         carry = rec["mode"].name if "mode" in rec else ""
-        for k in rec["names"]:
+        for k in _counters(rec):
             slots = [(k, carry) if by_mode else k]
             if "key_value" in rec and not by_mode:
                 slots.append((k, "kv" if rec["key_value"] else "keys"))
@@ -2796,7 +2833,7 @@ def main() -> int:
                     "launches": per[key, c]["n"] // TIMED_RUNS,
                     "bound_share": per[key, c]["bound"] / per[key, c]["ms"]}
                 for c in ("keys", "pairs", "stable")}
-        if key in ("block_sort", "place", "mask_pad"):  # radix, by kind
+        if key in ("block_sort", "place", "block_sort_first"):  # by kind
             for kind in ("keys", "kv"):
                 row[kind] = {**figures(per[key, kind]),
                              "bound_share": per[key, kind]["bound"]

@@ -229,9 +229,8 @@ def _held_to_backend(backend, names, n, count=False):
     if backend == "network":
         assert got and got <= NETWORK
     elif backend == "radix" and n >= radix.MIN_RADIX_N:
-        # 4 8-bit passes; a count= sort's mask-pad before them and its
-        # tail after
-        edges = ["mask_pad", "restore_tail"] if count else []
+        # 4 8-bit passes; a count= sort's tail after them
+        edges = ["restore_tail"] if count else []
         assert sorted(names) == sorted(list(RADIX) * 4 + edges)
     else:  # the reference, and radix below MIN_RADIX_N, launch nothing
         assert not names

@@ -336,7 +336,7 @@ def test_cuda_radix_sorter_full_size_matches_numpy(cuda_device):
         np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])
 
 
-MASK_COUNTS = (-3, 0, 1, 4095, 4096, "n-999", "n", "n+5")
+MASK_COUNTS = (None, -3, 0, 1, 4095, 4096, "n-999", "n", "n+5")
 
 
 def _as_i32(*ts):
@@ -347,13 +347,18 @@ def _as_i32(*ts):
 @pytest.mark.parametrize("kv", [False, True], ids=["keys", "kv"])
 @pytest.mark.parametrize("n", [radix.MIN_RADIX_N + 17, 1 << 25])
 def test_cuda_mask_pad_and_restore_match_plain(cuda_device, n, kv):
-    """The count= pad (`mask_pad`) and tail (`restore_tail`) kernels
-    bitwise equal to their plain versions over every count, on 16-byte
-    aligned inputs and on views one word in (keys[1:]), which are not."""
-    block = SortConfig().block
-    size = -(-n // block) * block
+    """K7's first pass on the caller's unpadded buffers (`size=`: the keys
+    at or past the count and the pads loaded as 0xFFFFFFFF, the values
+    past n as 0) and the tail kernel (`restore_tail`) bitwise equal to
+    their plain versions over every count and none, on 16-byte aligned
+    inputs and on views one word in (keys[1:]), which are not; genuine
+    0xFFFFFFFF keys sit beside the masked tail. At the smaller n the
+    count= sort on each view against numpy as well."""
+    cfg = SortConfig(backend="radix")
+    size = -(-n // cfg.block) * cfg.block
     k = _u32(n + 1, 31, 1 << 10)
     k[::61] = 0xFFFFFFFF
+    k[n - 1001:n - 997] = 0xFFFFFFFF  # on both sides of count n - 999
     base_k = torch.from_numpy(k).to(cuda_device)
     base_v = torch.from_numpy(_u32(n + 1, 32)).to(cuda_device)
     for offset in (0, 1):
@@ -363,24 +368,46 @@ def test_cuda_mask_pad_and_restore_match_plain(cuda_device, n, kv):
         for count in MASK_COUNTS:
             count = {"n-999": n - 999, "n": n, "n+5": n + 5}.get(count,
                                                                   count)
-            cnt = torch.tensor(count, device=cuda_device)
-            got = radix.mask_pad(keys, vals, cnt, size)
-            want = radix.mask_pad_plain(keys, vals, cnt, size)
-            got, want = (got, want) if kv else ((got,), (want,))
-            for g, w in zip(_as_i32(*got), _as_i32(*want)):
-                assert torch.equal(g, w), (offset, count)
+            cnt = (None if count is None
+                   else torch.tensor(count, device=cuda_device))
+            for shift in (0, 24):
+                args = dict(shift=shift, config=cfg, key_value=kv, size=size,
+                            count=cnt)
+                got = k7.block_sort(keys, vals, **args)
+                want = k7.block_sort_plain(keys, vals, **args)
+                for g, w in zip(_as_i32(*got[:-1]), _as_i32(*want[:-1])):
+                    assert torch.equal(g, w), (offset, count, shift)
+                assert torch.equal(got[-1], want[-1]), (offset, count, shift)
+            if cnt is None:
+                continue
             buf = torch.from_numpy(_u32(size, 33)).to(cuda_device)
             want_t = radix.restore_tail_plain(buf.clone(), keys, cnt)
             got_t = radix.restore_tail(buf, keys, cnt)
             assert got_t.data_ptr() == buf.data_ptr()  # in place
             assert torch.equal(*_as_i32(got_t, want_t)), (offset, count)
+            if n > 1 << 20:
+                continue
+            c = min(max(count, 0), n)
+            hk = k[offset:offset + n]
+            order = np.argsort(hk[:c], kind="stable")
+            if kv:
+                gk, gv = radix.sort_pairs_u32(keys, vals, count=cnt,
+                                              config=cfg)
+                hv = base_v[offset:offset + n].cpu().numpy()
+                np.testing.assert_array_equal(
+                    gv.cpu().numpy(), np.concatenate([hv[:c][order],
+                                                      hv[c:]]))
+            else:
+                gk = radix.sort_u32(keys, count=cnt, config=cfg)
+            np.testing.assert_array_equal(
+                gk.cpu().numpy(), np.concatenate([hk[:c][order], hk[c:]]))
 
 
 @pytest.mark.cuda
 def test_cuda_count_sort_holds_what_the_plain_sort_holds(cuda_device):
     """A 2^25 key-value count= sort on radix raises the allocator's peak
-    exactly as much as the same sort without a count: the mask-pad's
-    buffers are the passes' first, and no mask is held."""
+    exactly as much as the same sort without a count: both first passes
+    read the caller's buffers, and no mask is held."""
     n = 1 << 25
     s = vrs.Sorter(n, config=SortConfig(backend="radix"))
     dk = torch.from_numpy(_u32(n, 34)).to(cuda_device)
@@ -517,7 +544,8 @@ def test_cuda_tile_depth_sort_matches_plain_reference(cuda_device):
     assert names == (["split_pad"] + ["block_sort", "spine", "place"] * 4
                      + ["gather"] + ["block_sort", "spine", "place"] * 2
                      + ["gather"])
-    assert t.counts == {"vrs.backend.radix": 1, "vrs.radix.pass": 6}
+    assert t.counts == {"vrs.backend.radix": 1, "vrs.radix.pass": 6,
+                        "vrs.radix.first_pass.bulk": 1}
     wk, wv = plain_reference.sort_pairs_bits(keys, vals, 45)
     assert torch.equal(gk.view(torch.int64), wk.view(torch.int64))
     assert torch.equal(gv.view(torch.int32), wv.view(torch.int32))

@@ -1,9 +1,10 @@
 """The radix backend's `count=` path on the CPU (each kernel's plain
-version): the mask-pad before the passes and the tail restored after them,
-against the composition they replaced (`arange(n) < count`, `select_u32`,
-`pad_u32`, and the select of the keys after the sort), numpy's stable sort
-of the prefix and the reference backend's `count=` sorts; and the launches
-such a sort records. Tolerance: bitwise equality.
+version): the first pass's masked load (K7 on the caller's unpadded
+buffers) and the tail restored after the passes, against the composition
+they replaced (`arange(n) < count`, `select_u32`, `pad_u32`, and the
+select of the keys after the sort), numpy's stable sort of the prefix and
+the reference backend's `count=` sorts; and the launches and the
+first-pass counter such a sort records. Tolerance: bitwise equality.
 """
 
 import numpy as np
@@ -12,8 +13,10 @@ import torch
 
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import SortConfig
+from vulkan_radix_sort_tpu_torch.ops import block_sort as k7
 from vulkan_radix_sort_tpu_torch.ops import radix, reference
-from vulkan_radix_sort_tpu_torch.ops.bitops import (max_like_u32, pad_u32,
+from vulkan_radix_sort_tpu_torch.ops.bitops import (count_tensor,
+                                                    max_like_u32, pad_u32,
                                                     select_u32)
 from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 
@@ -78,11 +81,11 @@ def _count_keys(n, seed):
 @pytest.mark.parametrize("kv", [False, True], ids=["keys", "kv"])
 @pytest.mark.parametrize("n", [M, M + 17, 3 * M])
 def test_count_mask_pad_and_restore(n, kv, count, as_tensor):
-    """The count= pad and tail of the radix path against today's
-    composition (`arange(n) < count`, `select_u32`, `pad_u32`, and the
-    select of the keys after the sort), and the radix count= sort against
-    numpy's stable sort of the prefix and against the reference
-    backend's count= sorts."""
+    """The count= first pass and tail of the radix path against today's
+    composition (`arange(n) < count`, `select_u32`, `pad_u32`, K7's plain
+    pass, and the select of the keys after the sort), and the radix
+    count= sort against numpy's stable sort of the prefix and against the
+    reference backend's count= sorts."""
     cfg = SortConfig(backend="radix")
     count = _count(count, n)
     c = min(max(count, 0), n)
@@ -93,11 +96,12 @@ def test_count_mask_pad_and_restore(n, kv, count, as_tensor):
     live = torch.arange(n) < cnt
     want_x = pad_u32(select_u32(live, tk, max_like_u32(tk)), size,
                      0xFFFFFFFF)
-    got = radix.mask_pad(tk, tv if kv else None, cnt, size)
-    got_x, got_v = got if kv else (got, None)
-    _eq(got_x, want_x.numpy())
-    if kv:
-        _eq(got_v, pad_u32(tv, size, 0).numpy())
+    want = k7.block_sort_plain(want_x, pad_u32(tv, size, 0) if kv else None,
+                               shift=8, config=cfg, key_value=kv)
+    got = k7.block_sort(tk, tv if kv else None, shift=8, config=cfg,
+                        key_value=kv, size=size, count=cnt)
+    for g, w in zip(got, want):
+        _eq(g, w.numpy())
     # the tail: any sorted buffer gets the keys at or past c back
     buf = torch.from_numpy(_u32(size, 3))
     _eq(radix.restore_tail(buf, tk, cnt),
@@ -153,10 +157,10 @@ def test_sorter_radix_count_matches_reference(dtype, stable, count):
 
 
 def test_count_sort_launches_and_counts_the_mask_kernel():
-    """A radix count= sort records the mask-pad launch, K7, the spine and
-    K8 a pass, and the tail's launch: 14, the count= kernels once each.
-    The network, reference and 64-bit count= paths keep their ATen masks
-    and record neither."""
+    """A radix count= sort records K7, the spine and K8 a pass, the first
+    K7 the masked load of the caller's buffers, and the tail's launch:
+    13, and the masked first pass counted once. The network, reference and
+    64-bit count= paths keep their ATen masks and record no tail."""
     n = M
     keys, vals = _u32(n, 21), _u32(n, 22)
     tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
@@ -169,8 +173,11 @@ def test_count_sort_launches_and_counts_the_mask_kernel():
             else:
                 s.sort(tk, count=torch.tensor(n - 5))
         assert [r["names"][0] for r in timer.records] == \
-            ["mask_pad"] + passes + ["restore_tail"]
-        assert len(timer.records) == 14
+            passes + ["restore_tail"]
+        assert len(timer.records) == 13
+        assert [r.get("first") for r in timer.records[:4]] == \
+            ["masked", None, None, None]
+        assert timer.counts["vrs.radix.first_pass.masked"] == 1
     for backend, dtype, m in (("network", torch.uint32, 1 << 10),
                               ("reference", torch.uint32, n),
                               ("network", torch.uint64, 1 << 10),
@@ -182,5 +189,87 @@ def test_count_sort_launches_and_counts_the_mask_kernel():
         with timing.LaunchTimer() as timer:
             s.sort(k, count=m - 3)
             s.sort_key_value(k, torch.from_numpy(_u32(m, 24)), count=m - 3)
-        assert not {"mask_pad", "restore_tail"} & {
+        assert "restore_tail" not in {
             r["names"][0] for r in timer.records}, backend
+        assert not any(r.get("first") for r in timer.records), backend
+
+
+FIRST_SIZES = {"block": M, "block-5": M - 5, "block+1": M + 1}
+FIRST_COUNTS = (None, 0, "n-999", "n+5")
+
+
+@pytest.mark.parametrize("as_tensor", [False, True], ids=["int", "tensor"])
+@pytest.mark.parametrize("count", FIRST_COUNTS)
+@pytest.mark.parametrize("kv", [False, True], ids=["keys", "kv"])
+@pytest.mark.parametrize("n", list(FIRST_SIZES.values()),
+                         ids=list(FIRST_SIZES))
+def test_first_pass_is_mask_pad_then_the_plain_pass(n, kv, count,
+                                                    as_tensor):
+    """K7's first pass on the caller's unpadded buffers (`size=`) is
+    `mask_pad_plain` followed by K7's plain pass: the output, the values
+    and the histogram, at n a block multiple, a block multiple less 5 and
+    one block plus 1, without a count and with counts 0, below n and past
+    it (an int made a tensor as the sort does, or a tensor), keys with
+    genuine 0xFFFFFFFF words."""
+    cfg = SortConfig(backend="radix")
+    count = _count(count, n)
+    keys, vals = _count_keys(n, n + 7), _u32(n, n + 8)
+    tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
+    cnt = count_tensor(torch.tensor(count) if as_tensor and count is not None
+                       else count, tk.device)
+    size = -(-n // cfg.block) * cfg.block
+    padded = k7.mask_pad_plain(tk, tv if kv else None, cnt, size)
+    want = k7.block_sort_plain(*(padded if kv else (padded,)), shift=0,
+                               config=cfg, key_value=kv)
+    got = k7.block_sort(tk, tv if kv else None, shift=0, config=cfg,
+                        key_value=kv, size=size, count=cnt)
+    assert len(got) == len(want) == 2 + kv
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
+    np.testing.assert_array_equal(tk.numpy(), keys)  # inputs untouched
+    c = n if count is None else min(max(count, 0), n)
+    x = (padded[0] if kv else padded).numpy()
+    assert (x[c:] == 0xFFFFFFFF).all()
+    np.testing.assert_array_equal(x[:c], keys[:c])
+    if kv:
+        np.testing.assert_array_equal(padded[1].numpy()[:n], vals)
+        assert not padded[1].numpy()[n:].any()
+
+
+@pytest.mark.parametrize("call", ["keys", "kv", "keys_count", "ragged",
+                                  "unaligned", "u64"])
+def test_first_pass_counter_once_a_sort(call):
+    """`vrs.radix.first_pass.bulk` where the host sees every block
+    bulk-loaded (no count, n a block multiple, aligned buffers: the K7
+    launch takes no `size`), `.masked` otherwise (a count, a ragged n, a
+    view one word in), once a radix sort; the 64-bit path's first pass
+    reads split_pad's padded buffers: bulk."""
+    cfg = SortConfig(backend="radix")
+    n = 2 * M
+    base = torch.from_numpy(_u32(n + 1, 41))
+    vals = torch.from_numpy(_u32(n, 42))
+    keys = base[:n]
+    assert keys.data_ptr() % 16 == 0
+    with timing.LaunchTimer() as timer:
+        if call == "keys":
+            radix.sort_u32(keys, config=cfg)
+        elif call == "kv":
+            radix.sort_pairs_u32(keys, vals, config=cfg)
+        elif call == "keys_count":
+            radix.sort_u32(keys, count=n, config=cfg)
+        elif call == "ragged":
+            radix.sort_pairs_u32(keys[:n - 5], vals[:n - 5], config=cfg)
+        elif call == "unaligned":
+            radix.sort_u32(base[1:], config=cfg)
+        else:
+            radix.sort_u64(keys.to(torch.int64).view(torch.uint64),
+                           config=cfg, end_bit=40)
+    bulk = call in ("keys", "kv", "u64")
+    kind = "bulk" if bulk else "masked"
+    assert {k: v for k, v in timer.counts.items()
+            if k.startswith("vrs.radix.first_pass.")} == {
+        f"vrs.radix.first_pass.{kind}": 1}
+    k7s = [r for r in timer.records if r["names"][0] == "block_sort"]
+    assert [r.get("first") for r in k7s[:2]] == [
+        None if bulk else "masked", None]
+    assert all(r["numel"] % cfg.block == 0 for r in k7s)

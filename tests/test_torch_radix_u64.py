@@ -175,7 +175,8 @@ def test_the_cells_call_records_its_path():
     assert [r["what"] for r in t.records if "what" in r] == ["hi", "out"]
     assert [r["shift"] for r in t.records if r["names"] == ["place"]] == [
         0, 8, 16, 24, 0, 8]
-    assert t.counts == {"vrs.backend.radix": 1, "vrs.radix.pass": 6}
+    assert t.counts == {"vrs.backend.radix": 1, "vrs.radix.pass": 6,
+                        "vrs.radix.first_pass.bulk": 1}
     spans = [sp["name"] for sp in t.spans]
     assert spans == ["vrs.sort_key_value", "vrs.u64.split", "vrs.u64.lo",
                      "vrs.u64.gather", "vrs.u64.hi", "vrs.u64.gather"]
@@ -191,14 +192,15 @@ def test_the_cells_call_records_its_path():
 
 
 def test_32_bit_sorts_keep_their_launches():
-    """uint32 keys with every bit: 12 launches (4 passes), 14 with
-    count= (the mask-pad and the tail), 4 `vrs.radix.pass`."""
+    """uint32 keys with every bit: 12 launches (4 passes), 13 with
+    count= (the tail; the first K7 masks as it loads), 4
+    `vrs.radix.pass`."""
     n = 1 << 15
     keys, values = _u32(n, 51), _u32(n, 52)
     s = vrs.Sorter(n, device="cpu", config=RADIX)
     for call, launches in ((lambda: s.sort(keys), 12),
                            (lambda: s.sort_key_value(keys, values,
-                                                     count=n - 3), 14)):
+                                                     count=n - 3), 13)):
         with timing.LaunchTimer() as t:
             call()
         assert len(t.records) == launches

@@ -1,8 +1,8 @@
 """The recorder's spans and counts inside the port, on the CPU: the entry
-points' root spans, the `count=` masks' and the pad's spans, the counter
-of the backend that served each call, the kernel build's record, the null
-path when nothing listens, and the spans' host ranges on the torch
-profiler's timeline."""
+points' root spans, the `count=` tail's span, the counter of the backend
+that served each call and of a radix sort's first pass, the kernel
+build's record, the null path when nothing listens, and the spans' host
+ranges on the torch profiler's timeline."""
 
 import types
 
@@ -20,7 +20,7 @@ from vulkan_radix_sort_tpu_torch.utils import timing
 N = radix.MIN_RADIX_N
 RADIX = SortConfig(backend="radix")
 RADIX_PASS = ("block_sort", "spine", "place")
-COUNT_KERNELS = ("mask_pad", "restore_tail")
+COUNT_KERNELS = ("restore_tail",)
 
 
 def _u32(n: int, seed: int, dtype=np.uint32) -> torch.Tensor:
@@ -62,8 +62,9 @@ def test_one_root_span_a_call_shared_below(kind):
     assert all(x["root"] == root["id"] for x in timer.spans)
     assert all(x["parent"] == root["id"] for x in timer.spans[1:])
     assert timer.records
-    # the passes' launches lie below the root alone; a count= call's pad
-    # and tail kernels inside its count_mask spans
+    # the passes' launches lie below the root alone (the first K7 masks
+    # and pads as it loads); a count= call's tail kernel inside its
+    # count_mask span
     spans = {x["id"]: x for x in timer.spans}
     assert all(r["root"] == root["id"] for r in timer.records)
     assert all(r["span"] == root["id"] if r["names"][0] not in COUNT_KERNELS
@@ -76,21 +77,18 @@ def test_one_root_span_a_call_shared_below(kind):
 
 
 def test_count_call_spans_the_masks_twice_and_the_pad_once():
-    """A radix count= call: the pad is the mask's kernel, in the first
-    count_mask span, and the tail's kernel is in the second."""
+    """A radix count= call: the mask and the pad are the first K7's load,
+    below the root, and the tail's kernel is in the one count_mask span,
+    after every pass's launch on the host's clock."""
     timer = _kv_count_call(_sorter())
     names = [x["name"] for x in timer.spans]
-    assert names == ["vrs.sort_key_value", "vrs.count_mask",
-                     "vrs.count_mask"]
-    # one after another on the host's clock; the passes' launches lie
-    # between the two masks, below the root alone
-    ends = [(x["start_ns"], x["end_ns"]) for x in timer.spans[1:]]
-    assert all(a[1] <= b[0] for a, b in zip(ends, ends[1:]))
-    root, pad, tail = (x["id"] for x in timer.spans)
+    assert names == ["vrs.sort_key_value", "vrs.count_mask"]
+    root, tail = (x["id"] for x in timer.spans)
     assert [(r["names"][0], r["span"]) for r in timer.records] == (
-        [("mask_pad", pad)]
-        + [(k, root) for k in RADIX_PASS] * RADIX.num_passes
+        [(k, root) for k in RADIX_PASS] * RADIX.num_passes
         + [("restore_tail", tail)])
+    assert timer.records[0]["first"] == "masked"
+    assert timer.counts["vrs.radix.first_pass.masked"] == 1
 
 
 @pytest.mark.parametrize("wide", [False, True])
@@ -114,7 +112,7 @@ def test_spans_leave_the_launch_records_alone():
     assert len(timer.records) == 3 * RADIX.num_passes
     assert [r["names"][0] for r in timer.records[:3]] == [
         "block_sort", "spine", "place"]
-    assert [x["name"] for x in timer.spans] == ["vrs.sort", "vrs.pad"]
+    assert [x["name"] for x in timer.spans] == ["vrs.sort"]
     with timing.LaunchTimer() as plain:
         radix.sort_u32(keys, config=RADIX)
     assert [{k: v for k, v in r.items() if k in ("names", "numel", "shift")}
@@ -143,14 +141,18 @@ def test_one_backend_count_a_call(call, backend, n, served):
     with timing.LaunchTimer() as timer:
         CALLS[call](s, k, v)
         CALLS[call](s, k, v)
-    # and each radix call counts its four passes
-    passes = {"vrs.radix.pass": 8} if served == "radix" else {}
+    # and each radix call counts its four passes and its first pass's
+    # load: bulk where the host sees no block to mask
+    passes = {}
+    if served == "radix":
+        first = "bulk" if call in ("keys", "kv", "kvns") else "masked"
+        passes = {"vrs.radix.pass": 8, f"vrs.radix.first_pass.{first}": 2}
     assert timer.counts == {f"vrs.backend.{served}": 2, **passes}
     assert (len(timer.records) > 0) == (served != "reference")
-    # a radix count= call launches the pad's and the tail's kernel once
+    # a radix count= call launches the tail's kernel once
     masked = served == "radix" and call.endswith("_count")
     names = [r["names"][0] for r in timer.records]
-    assert [names.count(k) for k in COUNT_KERNELS] == [2 * masked] * 2
+    assert [names.count(k) for k in COUNT_KERNELS] == [2 * masked]
 
 
 def test_the_adaptive_fast_path_counts_itself():
@@ -161,7 +163,8 @@ def test_the_adaptive_fast_path_counts_itself():
         s.sort_key_value(k, k)
         s.sort(_u32(N, 8))
     assert timer.counts == {"vrs.backend.adaptive": 2,
-                            "vrs.backend.radix": 1, "vrs.radix.pass": 4}
+                            "vrs.backend.radix": 1, "vrs.radix.pass": 4,
+                            "vrs.radix.first_pass.bulk": 1}
 
 
 def test_nothing_listening_is_the_null_context(monkeypatch):
@@ -203,9 +206,10 @@ def test_spans_are_host_ranges_on_the_profiler_timeline():
     k, v = _u32(N, 11), _u32(N, 12)
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         s.sort_key_value(k, v, count=torch.tensor(N - 1))
-        s.sort(k)  # no count: the plain pad's span
+        s.sort(k)  # no count: no span below the root
     names = {e.name for e in prof.events()}
-    assert {"vrs.sort_key_value", "vrs.count_mask", "vrs.pad"} <= names
+    assert {"vrs.sort_key_value", "vrs.count_mask", "vrs.sort"} <= names
+    assert "vrs.pad" not in names
     # the root encloses the ops the call ran: the count= call's mask and
     # tail (their plain versions on the CPU)
     root = next(e for e in prof.events() if e.name == "vrs.sort_key_value")

@@ -54,13 +54,15 @@ SIGNATURES = {
     # (kv, keys, vals, out_k, out_v, hist, nblocks, block, shift, bits,
     #  stream)
     "vrs_block_sort": (_I, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
+    # (kv, count, n, keys, vals, out_k, out_v, hist, nblocks, block, shift,
+    #  bits, stream)
+    "vrs_block_sort_first": (_I, _P, _LL, _P, _P, _P, _P, _P, _LL, _I, _I,
+                             _I, _P),
     # (kv, y, yv, hist, offsets, out, outv, nblocks, block, shift, bits,
     #  stream)
     "vrs_place": (_I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _P),
     # (hist, g_row, offsets, nblocks, bits, stream)
     "vrs_spine": (_P, _P, _P, _LL, _I, _P),
-    # (kv, count, n, size, keys, vals, out_k, out_v, stream)
-    "vrs_mask_pad": (_I, _P, _LL, _LL, _P, _P, _P, _P, _P),
     # (count, n, keys, out, stream)
     "vrs_restore_tail": (_P, _LL, _P, _P, _P),
     # (wide, count, n, size, keys, vals, mask, hmask, hi_bytes, lo, pos,

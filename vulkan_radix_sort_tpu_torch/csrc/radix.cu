@@ -14,12 +14,15 @@
 //
 // A pass is three launches with nothing between them, K7 -> spine -> K8,
 // as the reference's upsweep -> spine -> downsweep
-// (src/shader/{upsweep,spine,downsweep}.slang). A count= sort adds one
-// launch before the passes, mask_pad_kernel (the pad, with keys at or past
-// the count read on the card written as 0xFFFFFFFF), and one after them,
-// restore_tail_kernel (the masked tail's keys back in place). A sort of
-// 64-bit keys, or of 32-bit keys by a number of low bits that is no
-// multiple of the digit (CUB's end_bit), runs the kv carries on (masked
+// (src/shader/{upsweep,spine,downsweep}.slang). The first pass's K7 reads
+// the caller's keys and values where they lie, of any length and
+// alignment: keys at or past the count (read on the card) or past n load as
+// 0xFFFFFFFF and values past n as 0, as upstream's upsweep reads them
+// (upsweep.slang:32), so no pad is copied. A count= sort adds one launch
+// after the passes, restore_tail_kernel (the masked tail's keys back in
+// place). A sort of 64-bit keys, or of 32-bit keys by a number of low bits
+// that is no multiple of the digit (CUB's end_bit), runs the kv carries on
+// (masked
 // word, position) pairs instead: split_pad_kernel writes the low words,
 // the positions, (key, value) records and the high words, gather_kernel
 // fetches each sorted position's high word for the high-word passes and,
@@ -98,6 +101,7 @@ namespace {
 
 constexpr int kThreads = 512;  // most threads of a K7 block: RADIX_THREADS
 constexpr int kVecKeys = 4;    // fewest keys a K7 thread holds: 16 bytes
+constexpr int kLoadBatch = 8;  // K7's first pass: word loads in flight
 constexpr int kPlaceThreads = 256;  // K8 scans radix <= 256 digits
 constexpr int kPlaceTile = 512;     // keys of a K8 block: 2 a thread
 constexpr int kSpineCluster = 8;  // blocks of the spine's one cluster
@@ -108,7 +112,7 @@ constexpr int kSmemBytes = 232448;
 constexpr int kMinBlock = 512;    // RADIX_THREADS in config.py
 constexpr int kMaxBlock = 16384;  // MAX_RADIX_BLOCK in config.py
 static_assert(kMinBlock % kPlaceTile == 0, "a K8 tile lies in one block");
-constexpr int kCopyThreads = 256;    // mask_pad and restore_tail
+constexpr int kCopyThreads = 256;    // the copy-like kernels below
 constexpr int kCopyBlocksPerSm = 8;  // 2048 threads: a full SM
 constexpr int kCopyVecs = 2;         // loads a thread has in flight
 
@@ -298,6 +302,14 @@ __device__ __forceinline__ void table_exclusive_scan(int* tab, int* wsum) {
   }
 }
 
+// The live prefix of a count= sort: the count, read on the card, clamped
+// to [0, n] (the `arange(n) < count` of the plain version).
+__device__ __forceinline__ long long live_count(const long long* count,
+                                                long long n) {
+  const long long c = *count;
+  return c < 0 ? 0 : c > n ? n : c;
+}
+
 // Rank of each of a thread's KPT keys, key(e) for slot e, among its
 // warp's keys of the same digit, in input order: the warp's count of the
 // digit so far (col[d * ts], an entry of the (digit, warp) table that no
@@ -358,13 +370,24 @@ __device__ __forceinline__ void rank_keys(Key key, uint32_t (&rank2)[KPT / 2],
 // shared memory and takes them into registers only for the scatter, so
 // that keys, values and ranks (96 words a thread at 32 keys) are never all
 // held through the rank: at 128 registers a thread they spilled.
-template <bool KV, int KPT, int BITS>
+//
+// FIRST (a sort's first pass) reads the caller's n keys (and values) in
+// place for the nblocks * block slots of the pass: key i < c as it is and
+// 0xFFFFFFFF from c on, c the live count (`count` read on the card, or n
+// if null), value i < n as it is and 0 from n on, the buffers the plain
+// version pads (`mask_pad_plain`). A block wholly below c is bulk-loaded
+// as in any pass if the keys are 16-byte aligned; the rest (the block
+// across c, those past it, every block of an unaligned view) are loaded a
+// word a thread, so no key at or past c is read. Without FIRST, count and
+// n are not read.
+template <bool KV, int KPT, int BITS, bool FIRST>
 __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
     block_sort_kernel(const uint32_t* __restrict__ keys,
                       const uint32_t* __restrict__ vals,
                       uint32_t* __restrict__ out_k,
                       uint32_t* __restrict__ out_v, int* __restrict__ hist,
-                      long long nblocks, int shift) {
+                      long long nblocks, int shift,
+                      const long long* __restrict__ count, long long n) {
   constexpr int kRadix = 1 << BITS, NS = sort_stages(KV);
   constexpr uint32_t kMask = kRadix - 1;
   extern __shared__ uint4 tile4[];
@@ -381,6 +404,13 @@ __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
   // slot e of lane l of warp w holds key seg + 32 e of the block, so
   // (slot, lane) is input order
   const int seg = w * 32 * KPT + lane;
+  // FIRST: the live keys [0, c), and whether the bulk copy engine may load
+  // them (it moves 16-byte aligned blocks)
+  const long long c = !FIRST ? 0 : count ? live_count(count, n) : n;
+  const bool aligned = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
+  auto bulk = [&](long long p) {
+    return !FIRST || (aligned && (p + 1) * block <= c);
+  };
 
   if (t == 0) {
     for (int b = 0; b < NS; ++b) bar_init(bars + b);
@@ -391,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
   __syncthreads();
   // Block p's keys into key buffer b.
   auto stage = [&](int b, long long p) {
-    if (t == 0 && p < nblocks)
+    if (t == 0 && p < nblocks && bulk(p))
       bulk_load(sk + b * block, keys + uint64_t(p) * uint64_t(block),
                 4 * block, bars + b);
   };
@@ -403,13 +433,35 @@ __global__ void __launch_bounds__(kThreads, KPT > 8 ? 1 : KV ? 2 : 3)
        p += gridDim.x, buf = buf + 1 == NS ? 0 : buf + 1) {
     const uint64_t base = uint64_t(p) * uint64_t(block);
     uint32_t* cur = sk + buf * block;
+    const bool bulk_p = bulk(p);
+    if (!bulk_p) {  // FIRST: a word a thread, kLoadBatch loads in flight,
+                    // before the values hold their registers; the
+                    // buffer's last store has read it
+      constexpr int kB = KPT < kLoadBatch ? KPT : kLoadBatch;
+#pragma unroll 1
+      for (int e0 = 0; e0 < KPT; e0 += kB) {
+        uint32_t wd[kB];
+#pragma unroll
+        for (int u = 0; u < kB; ++u) {
+          const long long i = (long long)base + t + (e0 + u) * nthreads;
+          wd[u] = i < c ? __ldcs(keys + i) : ~0u;
+        }
+#pragma unroll
+        for (int u = 0; u < kB; ++u) cur[t + (e0 + u) * nthreads] = wd[u];
+      }
+    }
     uint32_t v[KV ? KPT : 1];
     if constexpr (KV) {
 #pragma unroll
-      for (int e = 0; e < KPT; ++e) v[e] = __ldcs(vals + base + seg + 32 * e);
+      for (int e = 0; e < KPT; ++e) {
+        const uint64_t i = base + seg + 32 * e;
+        v[e] = !FIRST || i < uint64_t(n) ? __ldcs(vals + i) : 0u;
+      }
     }
-    bar_wait(bars + buf, parity >> buf & 1u);  // block p's keys are in
-    parity ^= 1u << buf;
+    if (bulk_p) {
+      bar_wait(bars + buf, parity >> buf & 1u);  // block p's keys are in
+      parity ^= 1u << buf;
+    }
     __syncthreads();  // and the table is zero again
     uint32_t k[KPT];
     if constexpr (!KV) {
@@ -611,72 +663,6 @@ __global__ void __launch_bounds__(kPlaceThreads)
   }
 }
 
-// The live prefix of a count= sort: the count, read on the card, clamped
-// to [0, n] (the `arange(n) < count` of the plain version).
-__device__ __forceinline__ long long live_count(const long long* count,
-                                                long long n) {
-  const long long c = *count;
-  return c < 0 ? 0 : c > n ? n : c;
-}
-
-// Words i .. i + 3 of src (i a multiple of 4), those at or past `end` not
-// read and given as 0: one 16-byte load where src is 16-byte aligned and
-// the four lie before `end`, else one load a word (a caller's view, such
-// as x[1:], need not be aligned).
-__device__ __forceinline__ uint4 load4(const uint32_t* __restrict__ src,
-                                       long long i, long long end,
-                                       bool vec) {
-  if (vec && i + 4 <= end)
-    return __ldcs(reinterpret_cast<const uint4*>(src + i));
-  uint32_t w[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) w[j] = i + j < end ? __ldcs(src + i + j) : 0u;
-  return make_uint4(w[0], w[1], w[2], w[3]);
-}
-
-// The count= pad of the radix path, in one pass over the input: keys
-// x[i] = keys[i] for i < c and 0xFFFFFFFF for c <= i < size, values
-// v[i] = values[i] for i < n and 0 up to size, c the live count. Each
-// thread stores kCopyVecs 16-byte vectors of each output an iteration
-// (size is a block multiple and the outputs are fresh buffers, so they
-// are aligned), loading all of them first; keys past c are not read.
-template <bool KV>
-__global__ void __launch_bounds__(kCopyThreads)
-    mask_pad_kernel(const long long* __restrict__ count, long long n,
-                    long long size, const uint32_t* __restrict__ keys,
-                    const uint32_t* __restrict__ vals,
-                    uint32_t* __restrict__ out_k,
-                    uint32_t* __restrict__ out_v) {
-  const long long c = live_count(count, n);
-  const bool kvec = (reinterpret_cast<uintptr_t>(keys) & 15) == 0;
-  const bool vvec = KV && (reinterpret_cast<uintptr_t>(vals) & 15) == 0;
-  const long long step = 4LL * blockDim.x;  // words between a thread's vectors
-  const long long stride = step * kCopyVecs * gridDim.x;
-  for (long long base = step * kCopyVecs * blockIdx.x + 4LL * threadIdx.x;
-       base < size; base += stride) {
-    uint4 k[kCopyVecs], v[KV ? kCopyVecs : 1];
-#pragma unroll
-    for (int u = 0; u < kCopyVecs; ++u) {
-      const long long i = base + u * step;
-      k[u] = load4(keys, i, c, kvec);
-      if constexpr (KV) v[u] = load4(vals, i, n, vvec);
-    }
-#pragma unroll
-    for (int u = 0; u < kCopyVecs; ++u) {
-      const long long i = base + u * step;
-      if (i >= size) break;
-      if (i + 4 > c) {
-        k[u].x = i < c ? k[u].x : ~0u;
-        k[u].y = i + 1 < c ? k[u].y : ~0u;
-        k[u].z = i + 2 < c ? k[u].z : ~0u;
-        k[u].w = i + 3 < c ? k[u].w : ~0u;
-      }
-      reinterpret_cast<uint4*>(out_k)[i >> 2] = k[u];
-      if constexpr (KV) reinterpret_cast<uint4*>(out_v)[i >> 2] = v[u];
-    }
-  }
-}
-
 // After the last pass of a count= sort: x[i] = keys[i] for c <= i < n, in
 // place. The stable passes leave the masked tail, 0xFFFFFFFF keys behind
 // every genuine one, at [c, n) in input order, so its values are already
@@ -717,9 +703,9 @@ constexpr int kItems = 8;
 // all ones for c <= i < size, for the high-word gather to read from a
 // dense array: 16 bits, which the L2 mostly holds, for an end bit up to
 // 48. The stable passes keep every key at or past c behind the live ones,
-// in input order, as mask_pad's tail: the low-word passes leave it last,
-// and its all-ones high words tie only with live ones ahead of it. Keys
-// past c (past n with REC) are not read.
+// in input order, as the first pass's masked tail: the low-word passes
+// leave it last, and its all-ones high words tie only with live ones ahead
+// of it. Keys past c (past n with REC) are not read.
 template <bool WIDE, bool REC>
 __global__ void __launch_bounds__(kCopyThreads)
     split_pad_kernel(const long long* __restrict__ count, long long n,
@@ -842,7 +828,7 @@ __global__ void __launch_bounds__(kCopyThreads)
   }
 }
 
-// Thread blocks of a mask_pad or restore_tail launch: enough to fill every
+// Thread blocks of a copy-like launch: enough to fill every
 // SM (kCopyBlocksPerSm of kCopyThreads), and no more than `words` need.
 int copy_grid(long long words, unsigned* grid) {
   int dev = 0, sms = 0;
@@ -872,11 +858,13 @@ struct SortArgs {
   long long nblocks;
   int block, shift, bits;
   cudaStream_t st;
+  const long long* count;  // the first pass's: see block_sort_kernel
+  long long n;
 };
 
-template <bool KV, int KPT, int BITS>
+template <bool KV, int KPT, int BITS, bool FIRST>
 int launch_match(const SortArgs& a) {
-  const auto kernel = block_sort_kernel<KV, KPT, BITS>;
+  const auto kernel = block_sort_kernel<KV, KPT, BITS, FIRST>;
   const int threads = a.block / KPT;
   const size_t smem = sort_smem(a.block, BITS, KV);
   int dev = 0, sms = 0, resident = 0;
@@ -891,30 +879,30 @@ int launch_match(const SortArgs& a) {
   if (e != cudaSuccess) return int(e);
   kernel<<<unsigned(sort_grid(a.nblocks, sms, resident)), threads, smem,
            a.st>>>(a.keys, a.vals, a.out_k, a.out_v, a.hist, a.nblocks,
-                   a.shift);
+                   a.shift, a.count, a.n);
   return int(cudaGetLastError());
 }
 
-template <bool KV, int BITS>
+template <bool KV, int BITS, bool FIRST>
 int launch_match_kpt(const SortArgs& a) {
   switch (a.block / sort_threads(a.block)) {
     case 4:
-      return launch_match<KV, 4, BITS>(a);
+      return launch_match<KV, 4, BITS, FIRST>(a);
     case 8:
-      return launch_match<KV, 8, BITS>(a);
+      return launch_match<KV, 8, BITS, FIRST>(a);
     case 16:
-      return launch_match<KV, 16, BITS>(a);
+      return launch_match<KV, 16, BITS, FIRST>(a);
     case 32:
-      return launch_match<KV, 32, BITS>(a);
+      return launch_match<KV, 32, BITS, FIRST>(a);
   }
   return int(cudaErrorInvalidValue);
 }
 
-template <bool KV>
+template <bool KV, bool FIRST>
 int launch_block_sort(const SortArgs& a) {
   if (a.nblocks == 0) return int(cudaSuccess);
-  return a.bits == 4 ? launch_match_kpt<KV, 4>(a)
-                     : launch_match_kpt<KV, 8>(a);
+  return a.bits == 4 ? launch_match_kpt<KV, 4, FIRST>(a)
+                     : launch_match_kpt<KV, 8, FIRST>(a);
 }
 
 template <bool KV>
@@ -932,18 +920,13 @@ int launch_place(const void* y, const void* yv, const void* hist,
   return int(cudaGetLastError());
 }
 
-}  // namespace
-
-// Each call launches one kernel on `stream` and returns cudaGetLastError()
-// (cudaErrorInvalidValue for a geometry the kernels do not take). `kv` != 0
-// moves the values too; otherwise their pointers are not read. K7's
-// buffers must be 16-byte aligned (the bulk copy engine moves its blocks).
-extern "C" {
-
-int vrs_block_sort(int kv, const void* keys, const void* vals, void* out_k,
-                   void* out_v, void* hist, long long nblocks, int block,
-                   int shift, int bits, void* stream) {
+// vrs_block_sort and vrs_block_sort_first: K7, FIRST or not.
+int block_sort_call(bool first, int kv, const void* count, long long n,
+                    const void* keys, const void* vals, void* out_k,
+                    void* out_v, void* hist, long long nblocks, int block,
+                    int shift, int bits, void* stream) {
   if (bad_geometry(nblocks, block, bits) || shift < 0 || shift > 31 ||
+      n < 0 || n > nblocks * block ||
       sort_smem(block, bits, kv != 0) > size_t(kSmemBytes))
     return int(cudaErrorInvalidValue);
   const SortArgs a{static_cast<const uint32_t*>(keys),
@@ -955,8 +938,42 @@ int vrs_block_sort(int kv, const void* keys, const void* vals, void* out_k,
                    block,
                    shift,
                    bits,
-                   static_cast<cudaStream_t>(stream)};
-  return kv ? launch_block_sort<true>(a) : launch_block_sort<false>(a);
+                   static_cast<cudaStream_t>(stream),
+                   static_cast<const long long*>(count),
+                   n};
+  if (first)
+    return kv ? launch_block_sort<true, true>(a)
+              : launch_block_sort<false, true>(a);
+  return kv ? launch_block_sort<true, false>(a)
+            : launch_block_sort<false, false>(a);
+}
+
+}  // namespace
+
+// Each call launches one kernel on `stream` and returns cudaGetLastError()
+// (cudaErrorInvalidValue for a geometry the kernels do not take). `kv` != 0
+// moves the values too; otherwise their pointers are not read. K7's
+// buffers must be 16-byte aligned (the bulk copy engine moves its blocks),
+// but for the first pass's inputs.
+extern "C" {
+
+int vrs_block_sort(int kv, const void* keys, const void* vals, void* out_k,
+                   void* out_v, void* hist, long long nblocks, int block,
+                   int shift, int bits, void* stream) {
+  return block_sort_call(false, kv, nullptr, 0, keys, vals, out_k, out_v,
+                         hist, nblocks, block, shift, bits, stream);
+}
+
+// A sort's first pass: K7 over nblocks * block slots from the caller's n
+// keys (and values), at any alignment, those at or past the int64 count on
+// the card (if `count` is not null; never read on the host) or past n
+// read as 0xFFFFFFFF, values past n as 0. The outputs as vrs_block_sort's.
+int vrs_block_sort_first(int kv, const void* count, long long n,
+                         const void* keys, const void* vals, void* out_k,
+                         void* out_v, void* hist, long long nblocks,
+                         int block, int shift, int bits, void* stream) {
+  return block_sort_call(true, kv, count, n, keys, vals, out_k, out_v, hist,
+                         nblocks, block, shift, bits, stream);
 }
 
 int vrs_place(int kv, const void* y, const void* yv, const void* hist,
@@ -995,36 +1012,6 @@ int vrs_spine(const void* hist, void* g_row, void* offsets,
                                 static_cast<const int*>(hist),
                                 static_cast<int*>(g_row),
                                 static_cast<int*>(offsets), nblocks, bits));
-}
-
-// The count= pad: out_k (and out_v), `size` words each, from the n keys
-// (and values) and the int64 count on the card (never read on the host).
-// The outputs must be 16-byte aligned and `size` a multiple of 4 at least
-// n; the inputs may sit anywhere.
-int vrs_mask_pad(int kv, const void* count, long long n, long long size,
-                 const void* keys, const void* vals, void* out_k,
-                 void* out_v, void* stream) {
-  if (n < 0 || size < n || size % 4 ||
-      (reinterpret_cast<uintptr_t>(out_k) & 15) ||
-      (kv && (reinterpret_cast<uintptr_t>(out_v) & 15)))
-    return int(cudaErrorInvalidValue);
-  if (size == 0) return int(cudaSuccess);
-  unsigned grid = 0;
-  const int e = copy_grid(size, &grid);
-  if (e != int(cudaSuccess)) return e;
-  auto st = static_cast<cudaStream_t>(stream);
-  auto cnt = static_cast<const long long*>(count);
-  auto k = static_cast<const uint32_t*>(keys);
-  auto v = static_cast<const uint32_t*>(vals);
-  auto ok = static_cast<uint32_t*>(out_k);
-  auto ov = static_cast<uint32_t*>(out_v);
-  if (kv)
-    mask_pad_kernel<true><<<grid, kCopyThreads, 0, st>>>(cnt, n, size, k, v,
-                                                         ok, ov);
-  else
-    mask_pad_kernel<false><<<grid, kCopyThreads, 0, st>>>(cnt, n, size, k,
-                                                          v, ok, ov);
-  return int(cudaGetLastError());
 }
 
 // After a count= sort: out[i] = keys[i] for count <= i < n, in place.

@@ -337,7 +337,7 @@ class Sorter:
         _served(backend, u.numel())
         if backend == "reference":
             return self._decode(reference.sort_keys_count(u, cnt))
-        if backend == "radix":  # the count masks in the pad's kernel
+        if backend == "radix":  # the count masks in the first K7 load
             return self._decode(radix.sort_u32(u, count=cnt,
                                                config=self.config))
         with timing.span("vrs.count_mask"):
@@ -420,7 +420,7 @@ class Sorter:
         if backend == "reference":
             k, v = reference.sort_pairs_count(u, values, cnt)
             return self._decode(k), v
-        if backend == "radix":  # stable either way; it masks in the pad
+        if backend == "radix":  # stable; it masks in the first K7 load
             k, v = radix.sort_pairs_u32(u, values, count=cnt,
                                         config=self.config)
             return self._decode(k), v

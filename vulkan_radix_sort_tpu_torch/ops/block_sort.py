@@ -15,7 +15,12 @@ it on an H100 and how it keeps the ranks stable: thread blocks that stay
 resident (`sort_grid`) walk the blocks, and the bulk copy engine loads
 the next blocks' keys into spare buffers (`sort_stages`, `sort_smem`)
 and stores each sorted block, so its buffers must be 16-byte aligned
-(`check_aligned`).
+(`check_aligned`). A sort's first pass (`size=`) is the exception: it
+reads the caller's keys and values where they lie, of any length up to
+the pass's padded size and any alignment, and loads the keys at or past
+the count and the slots past n as the sentinel (upstream's upsweep does
+the same, upsweep.slang:32), so no padded copy is made; its plain version
+pads first (`mask_pad_plain`).
 
 `block_sort` runs the plain version when the keys lie on the CPU, and
 otherwise launches the kernel or raises; an active
@@ -30,8 +35,9 @@ import torch
 
 from .. import _build
 from ..utils import timing
-from ..config import RADIX_THREADS, SortConfig
-from .bitops import check_aligned, widen_u32
+from ..config import KEY_SENTINEL, RADIX_THREADS, SortConfig
+from .bitops import (check_aligned, in_range, max_like_u32, pad_u32,
+                     select_u32, widen_u32)
 
 VECTOR_KEYS = 4  # fewest keys a K7 thread holds: 16 bytes
 
@@ -68,7 +74,10 @@ def sort_grid(nblocks: int, sms: int, resident: int) -> int:
     return min(nblocks, sms * max(resident, 1))
 
 
-def _check(keys, values, shift: int, config: SortConfig, key_value: bool):
+def _check(keys, values, shift: int, config: SortConfig, key_value: bool,
+           size: int | None, count) -> int:
+    """Raise on inputs the pass does not take; return its slots (`size`
+    for a first pass, else the keys')."""
     arrs = (keys, values) if key_value else (keys,)
     for a in arrs:
         if a is None or a.dtype != torch.uint32 or a.dim() != 1 \
@@ -77,14 +86,36 @@ def _check(keys, values, shift: int, config: SortConfig, key_value: bool):
                             "uint32 tensors")
         if a.device != keys.device or a.numel() != keys.numel():
             raise ValueError("keys and values must share device and length")
-    if keys.numel() % config.block:
-        raise ValueError(f"{keys.numel()} keys are not a multiple of the "
-                         f"block ({config.block})")
+    slots = keys.numel() if size is None else size
+    if slots % config.block or slots < keys.numel():
+        raise ValueError(f"{slots} slots for {keys.numel()} keys are not a "
+                         f"multiple of the block ({config.block})")
+    if count is not None and (size is None or count.dtype != torch.int64
+                              or count.dim() or count.device != keys.device):
+        raise ValueError("a count is a first pass's 0-d int64 tensor on "
+                         "the keys' device")
     if not 0 <= shift < 32:
         raise ValueError(f"shift {shift} is outside [0, 32)")
+    return slots
 
 
-def _plain(keys, values, shift: int, config: SortConfig, key_value: bool):
+def mask_pad_plain(keys, values, count, size: int):
+    """The buffers a first pass sorts, made by torch ops on any device:
+    keys selected where `arange(n) < count` (every key for a count of
+    None), the sentinel elsewhere, and both padded by `pad_u32` to `size`,
+    the values with 0. Returns keys, or (keys, values)."""
+    if count is not None:
+        keys = select_u32(in_range(keys, count), keys, max_like_u32(keys))
+    x = pad_u32(keys, size, KEY_SENTINEL)
+    return x if values is None else (x, pad_u32(values, size, 0))
+
+
+def _plain(keys, values, shift: int, config: SortConfig, key_value: bool,
+           size, count):
+    if size is not None:  # a first pass: the buffers it loads
+        padded = mask_pad_plain(keys, values if key_value else None, count,
+                                size)
+        keys, values = padded if key_value else (padded, None)
     n, radix = keys.numel(), config.radix
     digit = (widen_u32(keys) >> shift) & (radix - 1)
     bucket = torch.arange(n, device=keys.device) // config.block * radix \
@@ -99,51 +130,72 @@ def _plain(keys, values, shift: int, config: SortConfig, key_value: bool):
 
 
 def block_sort_plain(keys, values=None, *, shift: int, config: SortConfig,
-                     key_value: bool = False):
+                     key_value: bool = False, size: int | None = None,
+                     count=None):
     """The plain version, on any device: one stable torch.sort over
-    (block, digit)."""
-    _check(keys, values, shift, config, key_value)
-    return _plain(keys, values, shift, config, key_value)
+    (block, digit); a first pass (`size`) sorts `mask_pad_plain`'s
+    buffers."""
+    _check(keys, values, shift, config, key_value, size, count)
+    return _plain(keys, values, shift, config, key_value, size, count)
 
 
-def _launch(keys, values, shift: int, config: SortConfig, key_value: bool):
+def _launch(keys, values, shift: int, config: SortConfig, key_value: bool,
+            size, count):
     dev = keys.device
     if dev.type != "cuda":
         raise ValueError(f"no kernel for device {dev}")
-    nblocks = keys.numel() // config.block
-    y = torch.empty_like(keys)
-    yv = torch.empty_like(values) if key_value else None
+    slots = keys.numel() if size is None else size
+    nblocks = slots // config.block
+    y = torch.empty(slots, dtype=torch.int32, device=dev).view(torch.uint32)
+    yv = torch.empty_like(y) if key_value else None
     hist = torch.empty((nblocks, config.radix), dtype=torch.int32,
                        device=dev)
     if nblocks:
-        check_aligned((keys, values) if key_value else (keys,))
         lib = _build.library()
+        vals = values.data_ptr() if key_value else None
+        outs = (y.data_ptr(), yv.data_ptr() if key_value else None,
+                hist.data_ptr(), nblocks, config.block, shift,
+                config.digit_bits)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            err = lib.vrs_block_sort(
-                int(key_value), keys.data_ptr(),
-                values.data_ptr() if key_value else None, y.data_ptr(),
-                yv.data_ptr() if key_value else None, hist.data_ptr(),
-                nblocks, config.block, shift, config.digit_bits, stream)
+            if size is None:
+                check_aligned((keys, values) if key_value else (keys,))
+                err = lib.vrs_block_sort(int(key_value), keys.data_ptr(),
+                                         vals, *outs, stream)
+            else:
+                err = lib.vrs_block_sort_first(
+                    int(key_value), None if count is None
+                    else count.data_ptr(), keys.numel(), keys.data_ptr(),
+                    vals, *outs, stream)
         _build.check(err, "vrs_block_sort")
     return (y, yv, hist) if key_value else (y, hist)
 
 
 def block_sort(keys, values=None, *, shift: int, config: SortConfig,
-               key_value: bool = False):
+               key_value: bool = False, size: int | None = None,
+               count=None):
     """Sort each `config.block`-key block stably by the digit at `shift`.
 
     keys (and values with key_value): flat uint32, a multiple of the block
     long. Returns (sorted keys, hist) or (sorted keys, sorted values,
     hist), hist being (nblocks, radix) int32 digit counts per block.
+
+    With `size`, a sort's first pass: keys (and values) are the caller's
+    n <= size words, at any alignment, read where they lie, and the pass
+    sorts the `size` slots that `mask_pad_plain` would make of them (keys
+    at or past `count`, a 0-d int64 tensor on the keys' device clamped to
+    [0, n] and read on the card only, or past n without one, as the
+    sentinel; values past n as 0), with no copy. Its launch record adds
+    `first="masked"` and n.
     """
-    _check(keys, values, shift, config, key_value)
+    slots = _check(keys, values, shift, config, key_value, size, count)
     body = _plain if keys.device.type == "cpu" else _launch
 
     def run():
-        return body(keys, values, shift, config, key_value)
-    if not keys.numel():
+        return body(keys, values, shift, config, key_value, size, count)
+    if not slots:
         return run()
-    return timing.launch(run, ["block_sort"], keys.device,
-                         numel=keys.numel(), shift=shift, config=config,
-                         key_value=key_value)
+    first = {} if size is None else {"first": "masked", "n": keys.numel()}
+    return timing.launch(run, ["block_sort"], keys.device, numel=slots,
+                         shift=shift, config=config, key_value=key_value,
+                         **first)

@@ -18,27 +18,32 @@ the last K7's: two key (and value) buffers ping-pong, as in the reference
 bit by default) runs ceil(end_bit / digit_bits) passes, and the keys come
 back whole.
 
-Keys are padded to a block multiple with the sentinel 0xFFFFFFFF (values
-with 0), the reference's own trick (upsweep.slang:32): every pass is
-stable, and the pads sit after every genuine key in input order, so they
-stay behind genuine 0xFFFFFFFF keys and are sliced off at the end. The
-JAX package pads to 8 blocks for a TPU SMEM tile rule; the port needs no
-such rule.
+The passes run over n rounded up to a block multiple, the slots past n
+padded with the sentinel 0xFFFFFFFF (values with 0), the reference's own
+trick (upsweep.slang:32): every pass is stable, and the pads sit after
+every genuine key in input order, so they stay behind genuine 0xFFFFFFFF
+keys and are sliced off at the end. The pad is never copied: the first
+pass's K7 reads the caller's keys and values where they lie and loads the
+slots past n as the pads (`block_sort`'s `size=`). Where the host sees that
+no block needs it (no count, n a block multiple, 16-byte aligned inputs),
+the first pass is any pass's K7 on the caller's buffers; either way the
+sort counts `vrs.radix.first_pass.bulk` or `.masked` once. The JAX package
+pads to 8 blocks for a TPU SMEM tile rule; the port needs no such rule.
 
-With `count` (the reference's indirect sorts) the pad is one kernel,
-`mask_pad`, that also writes the keys at or past the count as the
-sentinel, so the masked tail sorts behind every genuine key in input
-order, like the pads. The values are not masked: after the last pass the
-tail's slots [count, n) hold its values in input order already, and one
-more kernel, `restore_tail`, writes its keys back in place. The count is
-a 0-d int64 tensor that only the kernels read, never the host.
+With `count` (the reference's indirect sorts) the first pass also loads
+the keys at or past the count as the sentinel, so the masked tail sorts
+behind every genuine key in input order, like the pads. The values are
+not masked: after the last pass the tail's slots [count, n) hold its
+values in input order already, and one more kernel, `restore_tail`,
+writes its keys back in place. The count is a 0-d int64 tensor that only
+the kernels read, never the host.
 
 64-bit keys (`sort_u64`, `sort_pairs_u64`), and 32-bit keys sorted by an
 `end_bit` that is no multiple of the digit, take the (word, position)
 path, `_sort_words`, on the same kv carries of K7 and K8, which never see
 a whole key or a mask. `split_pad` writes the low words, masked to bits
-[0, end_bit) and padded with the sentinel (past the count too, as
-`mask_pad` does), the positions 0..size-1, for key-value sorts each
+[0, end_bit) and padded with the sentinel (past the count too, as the
+first pass loads them), the positions 0..size-1, for key-value sorts each
 whole key with its value in one record, and past 32 bits the high words,
 masked to bits [32, end_bit) and all ones past the count and in the pads,
 in 16 bits up to bit 48 (an array the L2 mostly holds), else in 32. The
@@ -66,9 +71,9 @@ from . import reference
 from . import stream_place as k8
 from ..utils import timing
 from ..utils.timing import time_fn
-from .bitops import (check_u32, count_tensor, in_range, low_bits,
-                     max_like_u32, merge_u64, pad_u32, select_u32, split_u64,
-                     widen_u32)
+from .bitops import (VECTOR_BYTES, check_u32, count_tensor, in_range,
+                     low_bits, max_like_u32, merge_u64, pad_u32, select_u32,
+                     split_u64, widen_u32)
 
 # Below this size the reference backend sorts instead (`reference.sort_bits`),
 # as the JAX package hands n < _MIN_PALLAS_N to lax.sort (its
@@ -110,50 +115,9 @@ def _word_mask(bits: int) -> int:
     return mask - (1 << 32) if mask >= 1 << 31 else mask
 
 
-def mask_pad_plain(keys, values, count: torch.Tensor, size: int):
-    """The plain version, on any device: keys selected where `arange(n) <
-    count`, the sentinel elsewhere, and both padded by `pad_u32`."""
-    live = in_range(keys, count)
-    x = pad_u32(select_u32(live, keys, max_like_u32(keys)), size,
-                KEY_SENTINEL)
-    return x if values is None else (x, pad_u32(values, size, 0))
-
-
 def _empty_u32(size: int, device) -> torch.Tensor:
     return torch.empty(size, dtype=torch.int32, device=device).view(
         torch.uint32)
-
-
-def _mask_pad_launch(keys, values, count: torch.Tensor, size: int):
-    dev = keys.device
-    if dev.type != "cuda":
-        raise ValueError(f"no kernel for device {dev}")
-    kv = values is not None
-    keys = _dense(keys)
-    values = _dense(values) if kv else None
-    x = _empty_u32(size, dev)
-    v = _empty_u32(size, dev) if kv else None
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.vrs_mask_pad(int(kv), count.data_ptr(), keys.numel(), size,
-                               keys.data_ptr(),
-                               values.data_ptr() if kv else None,
-                               x.data_ptr(), v.data_ptr() if kv else None,
-                               stream)
-    _build.check(err, "vrs_mask_pad")
-    return (x, v) if kv else x
-
-
-def mask_pad(keys, values, count: torch.Tensor, size: int):
-    """New `size`-word buffers for the passes: keys[i] for i < count and
-    the sentinel up to `size` (and values[i] for i < n, then 0). `count`
-    is a 0-d int64 tensor on the keys' device, clamped to [0, n]. One
-    kernel launch on the card; the plain version on the CPU."""
-    body = mask_pad_plain if keys.device.type == "cpu" else _mask_pad_launch
-    return timing.launch(lambda: body(keys, values, count, size),
-                         ["mask_pad"], keys.device, numel=size,
-                         n=keys.numel(), key_value=values is not None)
 
 
 def restore_tail_plain(x, keys, count: torch.Tensor) -> torch.Tensor:
@@ -187,16 +151,19 @@ def restore_tail(x, keys, count: torch.Tensor) -> torch.Tensor:
                          x.device, numel=keys.numel())
 
 
-def _pad(keys, values, count, size: int) -> list:
-    """The passes' first buffers, [keys] or [keys, values]: the plain
-    pad, or with a count the mask-pad kernel."""
-    if count is None:
-        with timing.span("vrs.pad"):
-            x = pad_u32(keys, size, KEY_SENTINEL)
-            return [x] if values is None else [x, pad_u32(values, size, 0)]
-    with timing.span("vrs.count_mask"):
-        out = mask_pad(keys, values, count, size)
-        return [out] if values is None else list(out)
+def _first_pass(keys, values, count, size: int) -> tuple[list, dict]:
+    """The first pass's buffers, [keys] or [keys, values], the caller's
+    own (dense), and the K7 arguments that load them: none where every
+    block is bulk-loaded as in any pass (no count, n = size, 16-byte
+    aligned buffers), else the padded size and the count, for the masked
+    load (`block_sort`). Counts `vrs.radix.first_pass.bulk` or
+    `.masked`."""
+    bufs = [_dense(keys)] if values is None else [_dense(keys),
+                                                  _dense(values)]
+    bulk = count is None and keys.numel() == size and not any(
+        a.data_ptr() % VECTOR_BYTES for a in bufs)
+    timing.count("vrs.radix.first_pass." + ("bulk" if bulk else "masked"))
+    return bufs, {} if bulk else {"size": size, "count": count}
 
 
 def _tail(x, keys, count):
@@ -396,9 +363,11 @@ def gather_out(pos, keys, rec=None):
                          key_bytes=keys.element_size())
 
 
-def _passes(bufs: list, shifts, config: SortConfig) -> tuple:
+def _passes(bufs: list, shifts, config: SortConfig,
+            first: dict | None = None) -> tuple:
     """One K7 -> spine -> K8 pass a shift over `bufs`, [keys] or [keys,
-    values] (uint32, a block multiple long), each counted as
+    values] (uint32, a block multiple long, or with `first` the first
+    pass's K7 arguments, `_first_pass`), each counted as
     `vrs.radix.pass`. The loop owns the buffers: it takes them out of the
     list, which the caller keeps no other reference to, and drops each
     pass's input once K7 has read it and K7's output and the pass's
@@ -410,7 +379,8 @@ def _passes(bufs: list, shifts, config: SortConfig) -> tuple:
     for shift in shifts:
         timing.count("vrs.radix.pass")
         *ys, hist = k7.block_sort(*bufs, shift=shift, config=config,
-                                  key_value=kv)
+                                  key_value=kv, **(first or {}))
+        first = None
         bufs.clear()
         g, offsets = k8.spine(hist)
         out = k8.stream_place(ys[0], hist, g, ys[1] if kv else None,
@@ -433,6 +403,7 @@ def _sort_words(keys, values, count, end_bit: int, config: SortConfig):
         lo, pos, rec, hi = split_pad(keys, values, count, size, end_bit)
         bufs = [lo, pos]
         del lo, pos
+    timing.count("vrs.radix.first_pass.bulk")  # split_pad's padded buffers
     with timing.span("vrs.u64.lo"):
         pos = _passes(bufs, _shifts(min(end_bit, 32), config), config)[1]
     if end_bit > 32:
@@ -463,8 +434,8 @@ def sort_u32(keys: torch.Tensor, *, count=None,
         return reference.sort_bits(keys, None, bits, cnt)
     if bits % config.digit_bits:
         return _sort_words(keys, None, cnt, bits, config)
-    x, = _passes(_pad(keys, None, cnt, round_up(n, config.block)),
-                 _shifts(bits, config), config)
+    bufs, first = _first_pass(keys, None, cnt, round_up(n, config.block))
+    x, = _passes(bufs, _shifts(bits, config), config, first)
     return _tail(x, keys, cnt)
 
 
@@ -484,8 +455,8 @@ def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, *, count=None,
         return reference.sort_bits(keys, values, bits, cnt)
     if bits % config.digit_bits:
         return _sort_words(keys, values, cnt, bits, config)
-    x, v = _passes(_pad(keys, values, cnt, round_up(n, config.block)),
-                   _shifts(bits, config), config)
+    bufs, first = _first_pass(keys, values, cnt, round_up(n, config.block))
+    x, v = _passes(bufs, _shifts(bits, config), config, first)
     return _tail(x, keys, cnt), v[:n]
 
 

@@ -10,7 +10,7 @@ directly. A time is only ever taken on a card: with none present
 `LaunchTimer` records every kernel launch, span and count made while it is
 active. The kernels' wrappers (`bitonic_kernels.run`,
 `block_sort.block_sort`, `stream_place.spine`, `stream_place.stream_place`,
-`radix.mask_pad`, `radix.restore_tail`) call `launch` around each launch,
+`radix.restore_tail`, ...) call `launch` around each launch,
 or for CPU buffers around the plain version that stands in for it;
 `launch` records it in every active LaunchTimer: its counter names, the
 arguments that size its work, the innermost open span, and on a CUDA
@@ -20,8 +20,8 @@ without a card: a record with events is a kernel launch, one without a
 plain stand-in.
 
 `span` bounds a stretch of the program's own work (the entry points, the
-`count=` masks, the pad) on the host's clock, and `count` counts an event
-(the backend that served a call). With no LaunchTimer active and the torch
+`count=` masks) on the host's clock, and `count` counts an event (the
+backend that served a call, a radix sort's passes and first-pass load). With no LaunchTimer active and the torch
 profiler off, `span` hands back one shared null context and `count`
 returns at once: they cost a test or two, no torch call. While the torch
 profiler runs, every span is also a host range of that name on the
