@@ -461,7 +461,7 @@ def _radix_inputs(n: int, hi: int | None, gen, device):
     """Seeded keys (below `hi`, if given, for few distinct digits; with
     `hi` = TWO_DIGITS, every byte 0x2a or 0x2b, so that about 16 lanes of
     a slot share each digit) whose last RAGGED_TAIL slots are sentinel
-    pads, as `radix.sort_u32` pads a ragged last block; and seeded values,
+    pads, as `radix.sort` pads a ragged last block; and seeded values,
     0 under the pads."""
     lo, top = (0, hi) if hi and hi > 0 else (-(1 << 31), 1 << 31)
     k = torch.randint(lo, top, (n,), generator=gen, device=device,

@@ -391,14 +391,13 @@ def test_cuda_mask_pad_and_restore_match_plain(cuda_device, n, kv):
             hk = k[offset:offset + n]
             order = np.argsort(hk[:c], kind="stable")
             if kv:
-                gk, gv = radix.sort_pairs_u32(keys, vals, count=cnt,
-                                              config=cfg)
+                gk, gv = radix.sort(keys, vals, count=cnt, config=cfg)
                 hv = base_v[offset:offset + n].cpu().numpy()
                 np.testing.assert_array_equal(
                     gv.cpu().numpy(), np.concatenate([hv[:c][order],
                                                       hv[c:]]))
             else:
-                gk = radix.sort_u32(keys, count=cnt, config=cfg)
+                gk = radix.sort(keys, count=cnt, config=cfg)
             np.testing.assert_array_equal(
                 gk.cpu().numpy(), np.concatenate([hk[:c][order], hk[c:]]))
 
@@ -786,9 +785,9 @@ def test_cuda_radix_sort_matches_numpy(cuda_device, n, bits):
     keys[::10] = 0xFFFFFFFF
     dk = torch.from_numpy(keys).to(cuda_device)
     dv = torch.from_numpy(vals).to(cuda_device)
-    np.testing.assert_array_equal(radix.sort_u32(dk, config=cfg).cpu().numpy(),
+    np.testing.assert_array_equal(radix.sort(dk, config=cfg).cpu().numpy(),
                                   np.sort(keys))
-    gk, gv = radix.sort_pairs_u32(dk, dv, config=cfg)
+    gk, gv = radix.sort(dk, dv, config=cfg)
     order = np.argsort(keys, kind="stable")
     np.testing.assert_array_equal(gk.cpu().numpy(), keys[order])
     np.testing.assert_array_equal(gv.cpu().numpy(), vals[order])

@@ -111,13 +111,13 @@ def test_count_mask_pad_and_restore(n, kv, count, as_tensor):
     order = np.argsort(keys[:c], kind="stable")
     want_k = np.concatenate([keys[:c][order], keys[c:]])
     if kv:
-        gk, gv = radix.sort_pairs_u32(tk, tv, count=arg, config=cfg)
-        rk, rv = reference.sort_pairs_count(tk, tv, cnt)
+        gk, gv = radix.sort(tk, tv, count=arg, config=cfg)
+        rk, rv = reference.sort(tk, tv, count=cnt)
         _eq(gv, np.concatenate([vals[:c][order], vals[c:]]))
         _eq(gv, rv.numpy())
     else:
-        gk = radix.sort_u32(tk, count=arg, config=cfg)
-        rk = reference.sort_keys_count(tk, cnt)
+        gk = radix.sort(tk, count=arg, config=cfg)
+        rk = reference.sort(tk, count=cnt)
     _eq(gk, want_k)
     _eq(gk, rk.numpy())
     np.testing.assert_array_equal(tk.numpy(), keys)  # inputs untouched
@@ -252,18 +252,18 @@ def test_first_pass_counter_once_a_sort(call):
     assert keys.data_ptr() % 16 == 0
     with timing.LaunchTimer() as timer:
         if call == "keys":
-            radix.sort_u32(keys, config=cfg)
+            radix.sort(keys, config=cfg)
         elif call == "kv":
-            radix.sort_pairs_u32(keys, vals, config=cfg)
+            radix.sort(keys, vals, config=cfg)
         elif call == "keys_count":
-            radix.sort_u32(keys, count=n, config=cfg)
+            radix.sort(keys, count=n, config=cfg)
         elif call == "ragged":
-            radix.sort_pairs_u32(keys[:n - 5], vals[:n - 5], config=cfg)
+            radix.sort(keys[:n - 5], vals[:n - 5], config=cfg)
         elif call == "unaligned":
-            radix.sort_u32(base[1:], config=cfg)
+            radix.sort(base[1:], config=cfg)
         else:
-            radix.sort_u64(keys.to(torch.int64).view(torch.uint64),
-                           config=cfg, end_bit=40)
+            radix.sort(keys.to(torch.int64).view(torch.uint64), config=cfg,
+                       end_bit=40)
     bulk = call in ("keys", "kv", "u64")
     kind = "bulk" if bulk else "masked"
     assert {k: v for k, v in timer.counts.items()

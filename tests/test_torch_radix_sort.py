@@ -59,8 +59,8 @@ def test_sort_matches_numpy(n, bits):
     keys, vals = _u32(n, n + bits), _u32(n, n + 1)
     keys[1::3] = keys[::3][: len(keys[1::3])]  # ties
     tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
-    _eq(radix.sort_u32(tk, config=cfg), np.sort(keys))
-    gk, gv = radix.sort_pairs_u32(tk, tv, config=cfg)
+    _eq(radix.sort(tk, config=cfg), np.sort(keys))
+    gk, gv = radix.sort(tk, tv, config=cfg)
     order = np.argsort(keys, kind="stable")
     _eq(gk, keys[order])
     _eq(gv, vals[order])
@@ -74,9 +74,9 @@ def test_small_n_matches_jax(n):
     jcfg = JaxConfig(block=1024, flush_rows=4, interpret=True,
                      backend="pallas")
     tk, tv = torch.from_numpy(keys), torch.from_numpy(vals)
-    _eq(radix.sort_u32(tk), np.asarray(jax_radix.sort_u32(
+    _eq(radix.sort(tk), np.asarray(jax_radix.sort_u32(
         jnp.asarray(keys), config=jcfg)))
-    gk, gv = radix.sort_pairs_u32(tk, tv)
+    gk, gv = radix.sort(tk, tv)
     wk, wv = jax_radix.sort_pairs_u32(jnp.asarray(keys), jnp.asarray(vals),
                                       config=jcfg)
     _eq(gk, np.asarray(wk))
@@ -92,9 +92,8 @@ def test_sentinel_keys_stay_ahead_of_pads(bits):
     keys[::7] = 0xFFFFFFFF
     keys[-3:] = 0xFFFFFFFF
     vals = np.arange(n, dtype=np.uint32)
-    gk, gv = radix.sort_pairs_u32(torch.from_numpy(keys),
-                                  torch.from_numpy(vals),
-                                  config=CONFIGS[bits])
+    gk, gv = radix.sort(torch.from_numpy(keys), torch.from_numpy(vals),
+                        config=CONFIGS[bits])
     order = np.argsort(keys, kind="stable")
     _eq(gk, keys[order])
     _eq(gv, vals[order])
@@ -105,8 +104,7 @@ def test_skewed_distributions(dist):
     n = M + 300
     keys = datagen.generate_keys(n, seed=11, distribution=dist)
     vals = datagen.generate_values(n, seed=12)
-    gk, gv = radix.sort_pairs_u32(torch.from_numpy(keys),
-                                  torch.from_numpy(vals))
+    gk, gv = radix.sort(torch.from_numpy(keys), torch.from_numpy(vals))
     order = np.argsort(keys, kind="stable")
     _eq(gk, keys[order])
     _eq(gv, vals[order])
@@ -165,8 +163,8 @@ def test_stage_times_needs_a_card():
 
 def test_cpu_sort_counts_no_launch():
     with timing.LaunchTimer() as timer:
-        radix.sort_pairs_u32(torch.from_numpy(_u32(M, 17)),
-                             torch.from_numpy(_u32(M, 18)))
+        radix.sort(torch.from_numpy(_u32(M, 17)),
+                   torch.from_numpy(_u32(M, 18)))
     # K7, the spine and K8 a pass, as plain stand-ins without events
     assert len(timer.records) == 3 * SortConfig().num_passes
     assert all(r["events"] is None for r in timer.records)

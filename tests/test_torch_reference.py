@@ -1,10 +1,10 @@
 """The port's reference backend (`ops/reference.py`) against the JAX
 package's.
 
-Each of the eight functions is held bitwise: the 32-bit ones
-(`sort_keys`, `sort_pairs` and their `count=` forms) against
-`vulkan_radix_sort_tpu.ops.reference` on JAX's CPU backend, the 64-bit
-ones against numpy's stable argsort of the encoded words, and uint64,
+Its one entry, `sort`, is held bitwise: on uint32 keys, alone and with
+values, with `count=` and without, against
+`vulkan_radix_sort_tpu.ops.reference` on JAX's CPU backend; on uint64
+keys against numpy's stable argsort of the encoded words; and uint64,
 int64 and float64 keys through the Sorter against the JAX Sorter's 'xla'
 backend under `jax.enable_x64()`. The inputs are numpy-seeded and
 adversarial: all-equal keys, keys at the sign boundary, genuine maximum
@@ -61,7 +61,7 @@ def _keys32(case, n=N, seed=0) -> np.ndarray:
 
 
 def _keys64(case, n=N, seed=1) -> np.ndarray:
-    """uint64 keys (the encoded words the `*64` functions take), the same
+    """uint64 keys (the encoded words `sort` takes), the same
     cases one width up; `sign` also holds the encodings of int64 min and
     max (0 and 2^64 - 1)."""
     rng = np.random.default_rng(seed)
@@ -95,8 +95,8 @@ def _eq(got: torch.Tensor, want):
 def test_sort_keys_and_pairs_match_jax(case):
     k, v = _keys32(case), _vals()
     tk, tv = torch.from_numpy(k), torch.from_numpy(v)
-    _eq(reference.sort_keys(tk), jref.sort_keys(jnp.asarray(k)))
-    gk, gv = reference.sort_pairs(tk, tv)
+    _eq(reference.sort(tk), jref.sort_keys(jnp.asarray(k)))
+    gk, gv = reference.sort(tk, tv)
     wk, wv = jref.sort_pairs(jnp.asarray(k), jnp.asarray(v))
     _eq(gk, wk)
     _eq(gv, wv)
@@ -110,9 +110,9 @@ def test_count_forms_match_jax(case, count):
     k, v = _keys32(case), _vals()
     tk, tv = torch.from_numpy(k), torch.from_numpy(v)
     cnt = torch.tensor(count)
-    _eq(reference.sort_keys_count(tk, cnt),
+    _eq(reference.sort(tk, count=cnt),
         jref.sort_keys_count(jnp.asarray(k), count))
-    gk, gv = reference.sort_pairs_count(tk, tv, cnt)
+    gk, gv = reference.sort(tk, tv, count=cnt)
     wk, wv = jref.sort_pairs_count(jnp.asarray(k), jnp.asarray(v), count)
     _eq(gk, wk)
     _eq(gv, wv)
@@ -121,21 +121,18 @@ def test_count_forms_match_jax(case, count):
 @pytest.mark.parametrize("count", (None,) + _counts(N))
 @pytest.mark.parametrize("case", CASES)
 def test_64_bit_functions_match_numpy(case, count):
-    """The `*64` functions against numpy's stable argsort of the words;
-    with count=, the first `count` sorted and the tails untouched."""
+    """`sort` of uint64 keys, alone and with values, against numpy's
+    stable argsort of the words; with count=, the first `count` sorted and
+    the tails untouched."""
     k, v = _keys64(case), _vals()
     tk, tv = torch.from_numpy(k), torch.from_numpy(v)
     m = N if count is None else count
     o = np.argsort(k[:m], kind="stable")
     wk = np.concatenate([k[:m][o], k[m:]])
     wv = np.concatenate([v[:m][o], v[m:]])
-    if count is None:
-        gk = reference.sort_keys64(tk)
-        pk, pv = reference.sort_pairs64(tk, tv)
-    else:
-        cnt = torch.tensor(count)
-        gk = reference.sort_keys64_count(tk, cnt)
-        pk, pv = reference.sort_pairs64_count(tk, tv, cnt)
+    cnt = None if count is None else torch.tensor(count)
+    gk = reference.sort(tk, count=cnt)
+    pk, pv = reference.sort(tk, tv, count=cnt)
     _eq(gk, wk)
     _eq(pk, wk)
     _eq(pv, wv)
@@ -209,23 +206,21 @@ GATHERS = {"aten::index", "aten::gather", "aten::take",
            "aten::index_select"}
 
 
-@pytest.mark.parametrize("name,width,gathers", [
-    ("sort_keys", "int", 0), ("sort_pairs", "int", 1),
-    ("sort_keys64", "long int", 0), ("sort_pairs64", "long int", 1)])
-def test_one_sort_no_widening_no_key_gather(name, width, gathers,
-                                            tmp_path):
-    """torch.profiler on the CPU: the function runs exactly one
-    `aten::sort`, of the keys at their own width (int32 for uint32 keys,
-    int64 for uint64), and one gather in a pair sort, of the int32
-    values, none in a keys sort. `sort_keys` on uint32 keys: no op
-    outside the sort's own body takes an int64 tensor of n elements (no
-    widening; the sort's indices go unused)."""
+@pytest.mark.parametrize("width,gathers", [
+    ("int", 0), ("int", 1), ("long int", 0), ("long int", 1)],
+    ids=["keys32", "kv32", "keys64", "kv64"])
+def test_one_sort_no_widening_no_key_gather(width, gathers, tmp_path):
+    """torch.profiler on the CPU: `sort` runs exactly one `aten::sort`, of
+    the keys at their own width (int32 for uint32 keys, int64 for
+    uint64), and one gather in a pair sort, of the int32 values, none in
+    a keys sort. A keys sort of uint32 keys: no op outside the sort's own
+    body takes an int64 tensor of n elements (no widening; the sort's
+    indices go unused)."""
     n = 4096
     k = torch.from_numpy(_keys32("uniform", n) if width == "int"
                          else _keys64("uniform", n))
     args = (k,) if gathers == 0 else (k, torch.from_numpy(_vals(n)))
-    ops = _trace(getattr(reference, name), *args,
-                 path=tmp_path / "trace.json")
+    ops = _trace(reference.sort, *args, path=tmp_path / "trace.json")
     sorts = [op for op in ops if op[0] == "aten::sort"]
     assert len(sorts) == 1
     _, t0, t1, dims, types = sorts[0]
@@ -234,7 +229,7 @@ def test_one_sort_no_widening_no_key_gather(name, width, gathers,
     taken = [op for op in outside if op[0] in GATHERS]
     assert len(taken) == gathers
     assert all(op[4][0] == "int" and op[3][0] == [n] for op in taken)
-    if name == "sort_keys":
+    if width == "int" and gathers == 0:
         wide = [op[0] for op in outside if any(
             d == [n] and t == "long int" for d, t in zip(op[3], op[4]))]
         assert wide == []

@@ -27,6 +27,7 @@ import vulkan_radix_sort_tpu as jvrs
 import vulkan_radix_sort_tpu_torch as vrs
 from vulkan_radix_sort_tpu_torch.config import (
     CHUNK_CARRY, CHUNK_KEYS, RADIX_BLOCK, SortConfig, config_from_jax)
+from vulkan_radix_sort_tpu_torch.ops import bitonic, radix, reference
 from vulkan_radix_sort_tpu_torch.utils import datagen, timing
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -145,6 +146,67 @@ def test_module_functions_match_jax():
                                  stable=False)
     _eq(gk, wk)
     _eq(gv, wv)
+
+
+CONTRACT = {  # backend -> (module, n, config)
+    "radix": (radix, radix.MIN_RADIX_N + 5, SortConfig(backend="radix")),
+    "network": (bitonic, 1029, SortConfig(backend="network", chunk=CHUNK)),
+    "reference": (reference, 1029, SortConfig(backend="reference"))}
+CONTRACT_END_BIT = {32: 13, 64: 45}
+
+
+@pytest.mark.parametrize("end_bit", [None, "odd"])
+@pytest.mark.parametrize("count", [None, 0, "mid", "n"])
+@pytest.mark.parametrize("kind", ["keys", "kv", "kvns"])
+@pytest.mark.parametrize("width", [32, 64])
+@pytest.mark.parametrize("backend", list(CONTRACT))
+def test_backend_sort_contract(backend, width, kind, count, end_bit):
+    """Each backend's one `sort` on encoded keys against the reference
+    backend's and numpy's stable argsort of the prefix, for every key
+    width, kind, `count` (None, 0, the middle, n) and an `end_bit` no
+    multiple of 8 (or None): keys and values bitwise, but for the
+    network's stable=False without `end_bit`, whose values are checked as
+    a multiset per key (equal keys come out by ascending value). Genuine
+    maximum keys lie in the prefix; the radix case runs its kernels'
+    plain versions (n = MIN_RADIX_N + 5)."""
+    module, n, cfg = CONTRACT[backend]
+    np_dt = np.uint32 if width == 32 else np.uint64
+    rng = np.random.default_rng(width + n)
+    k = rng.integers(0, 2**width - 1, n, dtype=np.uint64,
+                     endpoint=True).astype(np_dt)
+    k[::13] = k[::11][: len(k[::13])]  # ties
+    k[::17] = np.iinfo(np_dt).max
+    v = datagen.generate_values(n, seed=width)
+    c = {"mid": n // 2, "n": n}.get(count, count)
+    bits = CONTRACT_END_BIT[width] if end_bit else None
+    stable = kind != "kvns"
+    cnt = None if c is None else torch.tensor(c)
+    tk, tv = torch.from_numpy(k), torch.from_numpy(v)
+    values = None if kind == "keys" else tv
+    kw = dict(count=cnt, end_bit=bits, stable=stable, config=cfg)
+    got = module.sort(tk, values, **kw)
+    want = reference.sort(tk, values, **kw)
+    gk, gv = (got, None) if values is None else got
+    wk, wv = (want, None) if values is None else want
+    m = n if c is None else c
+    order = np.argsort(k[:m] if bits is None
+                       else k[:m] & np_dt((1 << bits) - 1), kind="stable")
+    np.testing.assert_array_equal(wk.numpy(),
+                                  np.concatenate([k[:m][order], k[m:]]))
+    np.testing.assert_array_equal(gk.numpy(), wk.numpy())
+    np.testing.assert_array_equal(tk.numpy(), k)  # inputs untouched
+    if values is None:
+        return
+    np.testing.assert_array_equal(wv.numpy(),
+                                  np.concatenate([v[:m][order], v[m:]]))
+    if backend == "network" and not stable and bits is None:
+        np.testing.assert_array_equal(gv.numpy()[m:], v[m:])
+        pairs = np.lexsort((gv.numpy()[:m], gk.numpy()[:m]))
+        want_pairs = np.lexsort((v[:m], k[:m]))
+        np.testing.assert_array_equal(gv.numpy()[:m][pairs],
+                                      v[:m][want_pairs])
+        return
+    np.testing.assert_array_equal(gv.numpy(), wv.numpy())
 
 
 @pytest.mark.parametrize("max_n", [1, 255, 1000, 1 << 20, (1 << 20) + 1])

@@ -160,8 +160,8 @@ def test_radix_launches_recorded():
     with timing.LaunchTimer() as outer:
         with timing.LaunchTimer() as inner:
             inner.tag = "radix"
-            radix.sort_u32(k, config=cfg)
-    radix.sort_u32(k, config=cfg)
+            radix.sort(k, config=cfg)
+    radix.sort(k, config=cfg)
     for t in (outer, inner):
         assert Counter(r["names"][0] for r in t.records) == {
             "block_sort": cfg.num_passes, "spine": cfg.num_passes,

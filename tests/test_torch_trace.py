@@ -114,7 +114,7 @@ def test_spans_leave_the_launch_records_alone():
         "block_sort", "spine", "place"]
     assert [x["name"] for x in timer.spans] == ["vrs.sort"]
     with timing.LaunchTimer() as plain:
-        radix.sort_u32(keys, config=RADIX)
+        radix.sort(keys, config=RADIX)
     assert [{k: v for k, v in r.items() if k in ("names", "numel", "shift")}
             for r in plain.records] == [
         {k: v for k, v in r.items() if k in ("names", "numel", "shift")}

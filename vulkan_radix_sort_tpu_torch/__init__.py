@@ -18,8 +18,10 @@ reference's indirect path), on a CUDA device unless asked for the CPU,
 where each kernel's plain PyTorch version runs instead. uint64, int64
 and float64 keys sort the same ways on the network (as (hi, lo) uint32
 words, key-value in the three-word carries of `csrc/network_w64.cu`), on
-radix (as (word, position) pairs through the same passes, `radix.sort_u64`)
-and on the reference backend. uint32 and uint64 keys may be ordered by
+radix (as (word, position) pairs through the same passes) and on the
+reference backend. The Sorter checks, encodes, picks the backend and
+opens the spans; each backend's one `sort` (`ops.radix`, `ops.bitonic`,
+`ops.reference`) owns `count=`, `end_bit` and the key width. uint32 and uint64 keys may be ordered by
 their low `end_bit` bits alone, stably, and come back whole, as with
 CUB's end_bit: a sort of fewer bits runs fewer radix passes, and 'auto'
 gives a 64-bit call to radix only at pass counts where radix was measured

@@ -15,9 +15,14 @@ analogs of the reference host library's entry points
 Keys may be uint32, int32, float32, or (beyond the reference's uint32-only
 API, as in the JAX package) uint64, int64 and float64, which sort as (hi,
 lo) uint32 word pairs on the network, as (word, position) pairs on the
-radix backend (`radix.sort_u64`) and as one torch.sort on the reference
-backend. uint32 and uint64 keys may be sorted by their low `end_bit` bits
-alone (CUB's end_bit: stably, the keys back whole), on every backend.
+radix backend and as one torch.sort on the reference backend. uint32 and
+uint64 keys may be sorted by their low `end_bit` bits alone (CUB's
+end_bit: stably, the keys back whole), on every backend.
+
+The Sorter owns the checks, the encoding, the backend choice, the
+adaptive path and the spans and counters of a call; it hands the encoded
+keys to one function, the backend's `sort` (`_BACKENDS`), which owns
+`count=`, `end_bit` and the key width.
 
 Each sorter picks one backend per kind of sort (keys, stable key-value,
 stable=False key-value) from its max_n: `backend`, `backend_kv` and
@@ -114,6 +119,10 @@ def _pick_backend(cfg: SortConfig, device: torch.device,
         return "reference"
     return engine
 
+
+# Each backend's module: its `sort` owns `count=`, `end_bit` and the key
+# width behind one signature.
+_BACKENDS = {"radix": radix, "network": bitonic, "reference": reference}
 
 # The counter of each backend that can serve a call ('adaptive': the
 # opt-in fast path answered it with a copy or a flip).
@@ -317,61 +326,7 @@ class Sorter:
         backend = self.backend_for("keys", end_bit)
         with timing.span("vrs.sort", n=keys.numel(), backend=backend,
                          count=count is not None):
-            return self._sort(keys, count, end_bit, backend)
-
-    def _sort(self, keys: torch.Tensor, count, end_bit: int | None,
-              backend: str) -> torch.Tensor:
-        self._check(keys)
-        u = self._encode(keys)
-        if end_bit is not None:  # unsigned keys: no encoding
-            return self._sort_bits(u, None, count, end_bit, backend)
-        if count is None:
-            def slow(u):
-                return (self._sort64(u, backend) if self.wide
-                        else self._sort32(u, backend))
-            return self._decode(_adaptive_sort(u, slow) if self.config.adaptive
-                                else slow(u))
-        if self.wide:
-            return self._decode(self._sort64(u, backend, count))
-        cnt = bitops.count_tensor(count, self.device)
-        _served(backend, u.numel())
-        if backend == "reference":
-            return self._decode(reference.sort_keys_count(u, cnt))
-        if backend == "radix":  # the count masks in the first K7 load
-            return self._decode(radix.sort_u32(u, count=cnt,
-                                               config=self.config))
-        with timing.span("vrs.count_mask"):
-            live = bitops.in_range(u, cnt)
-            # The first `count` slots of the masked keys-only sort are
-            # exactly the sorted prefix: sentinels and genuine 0xFFFFFFFF
-            # keys are indistinguishable in the output, so no index carry
-            # is needed.
-            masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-        k = bitonic.sort_u32(masked, cnt, chunk=self.config.chunk_keys)
-        with timing.span("vrs.count_mask"):
-            k = bitops.select_u32(live, k, u)
-        return self._decode(k)
-
-    def _sort32(self, u: torch.Tensor, backend: str) -> torch.Tensor:
-        """Keys-only sort of encoded uint32 keys on `backend`."""
-        _served(backend, u.numel())
-        if backend == "network":
-            return bitonic.sort_u32(u, chunk=self.config.chunk_keys)
-        if backend == "radix":
-            return radix.sort_u32(u, config=self.config)
-        return reference.sort_keys(u)
-
-    def _sort_pairs32(self, u: torch.Tensor, values: torch.Tensor,
-                      stable: bool, backend: str):
-        """Key-value sort of encoded uint32 keys on `backend`."""
-        _served(backend, u.numel())
-        if backend == "network":
-            return bitonic.sort_pairs_u32(u, values,
-                                          chunk=self.config.chunk_carry,
-                                          stable=stable)
-        if backend == "radix":
-            return radix.sort_pairs_u32(u, values, config=self.config)
-        return reference.sort_pairs(u, values)
+            return self._run(keys, None, count, end_bit, True, backend)
 
     def sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
                        count=None, stable: bool = True,
@@ -394,161 +349,31 @@ class Sorter:
         backend = self.backend_for("kv" if stable else "kvns", end_bit)
         with timing.span("vrs.sort_key_value", n=keys.numel(),
                          backend=backend, count=count is not None):
-            return self._sort_key_value(keys, values, count, stable,
-                                        end_bit, backend)
+            return self._run(keys, values, count, end_bit, stable, backend)
 
-    def _sort_key_value(self, keys: torch.Tensor, values: torch.Tensor,
-                        count, stable: bool, end_bit: int | None,
-                        backend: str):
+    def _run(self, keys: torch.Tensor, values, count, end_bit: int | None,
+             stable: bool, backend: str):
+        """The one dispatch: the checks, the encoding, the adaptive path
+        (neither `count` nor `end_bit`), the served backend's counter and
+        its `sort`, which owns `count=`, `end_bit` and the key width
+        (`_BACKENDS`), and the decoding."""
         self._check(keys, values)
         u = self._encode(keys)
-        if end_bit is not None:  # unsigned keys: no encoding
-            return self._sort_bits(u, values, count, end_bit, backend)
-        if count is None:
-            def slow(u, v):
-                if self.wide:
-                    return self._sort_pairs64(u, v, None, stable, backend)
-                return self._sort_pairs32(u, v, stable, backend)
-            k, v = (_adaptive_sort_pairs(u, values, slow)
-                    if self.config.adaptive else slow(u, values))
-            return self._decode(k), v
-        if self.wide:
-            k, v = self._sort_pairs64(u, values, count, stable, backend)
-            return self._decode(k), v
         cnt = bitops.count_tensor(count, self.device)
-        _served(backend, u.numel())
-        if backend == "reference":
-            k, v = reference.sort_pairs_count(u, values, cnt)
-            return self._decode(k), v
-        if backend == "radix":  # stable; it masks in the first K7 load
-            k, v = radix.sort_pairs_u32(u, values, count=cnt,
-                                        config=self.config)
-            return self._decode(k), v
-        with timing.span("vrs.count_mask"):
-            live = bitops.in_range(u, cnt)
-            masked = bitops.select_u32(live, u, bitops.max_like_u32(u))
-            # non-stable: mask values too, making the masked tail the
-            # lexicographic maximum, so genuine (max key, max value) pairs
-            # are bitwise interchangeable with it and the prefix stays
-            # exact
-            mv = values if stable else \
-                bitops.select_u32(live, values, bitops.max_like_u32(values))
-        k, v = bitonic.sort_pairs_u32(masked, mv, cnt,
-                                      chunk=self.config.chunk_carry,
-                                      stable=stable)
-        with timing.span("vrs.count_mask"):
-            k = bitops.select_u32(live, k, u)
-            v = bitops.select_u32(live, v, values)
-        return self._decode(k), v
 
-    # -- 64-bit keys: (hi, lo) words (JAX sorter.py:234-262, 287-315,
-    # 340-367, 404-437) ----------------------------------------------------
-
-    def _sort64(self, u: torch.Tensor, backend: str,
-                count=None) -> torch.Tensor:
-        """Keys-only sort of encoded uint64 keys on `backend`: on the
-        network the (hi, lo) words ride the non-stable (k, v) carry, whose
-        order is theirs; radix takes the count itself. With `count` on the
-        network, keys past it are masked to the u64 maximum: as for
-        32-bit keys, genuine maximum keys are bitwise interchangeable with
-        the mask in the output, so no index carry is needed."""
-        chunk = self.config.chunk_carry
-        cnt = None if count is None else bitops.count_tensor(count,
-                                                              self.device)
-        _served(backend, u.numel())
-        if backend == "reference":
-            return (reference.sort_keys64(u) if cnt is None
-                    else reference.sort_keys64_count(u, cnt))
-        if backend == "radix":
-            return radix.sort_u64(u, count=cnt, config=self.config)
-        if cnt is None:
-            hi, lo = bitonic.sort_pairs_u32(*bitops.split_u64(u), chunk=chunk,
-                                            stable=False)
-            return bitops.merge_u64(hi, lo)
-        with timing.span("vrs.count_mask"):
-            live = bitops.in_range(u, cnt)
-            masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
-        k = bitops.merge_u64(*bitonic.sort_pairs_u32(
-            *bitops.split_u64(masked), cnt, chunk=chunk, stable=False))
-        with timing.span("vrs.count_mask"):
-            return bitops.select_u64(live, k, u)
-
-    def _sort_pairs64(self, u: torch.Tensor, values: torch.Tensor, count,
-                      stable: bool, backend: str):
-        """Key-value sort of encoded uint64 keys on `backend`: W4_BIG
-        (stable) or W3 on the network, where `count` masks as
-        `sort_key_value` does; radix is stable either way."""
-        chunk = self.config.chunk_carry
-        cnt = None if count is None else bitops.count_tensor(count,
-                                                              self.device)
-        _served(backend, u.numel())
-        if backend == "reference":
-            return (reference.sort_pairs64(u, values) if cnt is None
-                    else reference.sort_pairs64_count(u, values, cnt))
-        if backend == "radix":
-            return radix.sort_pairs_u64(u, values, count=cnt,
-                                        config=self.config)
-        if cnt is None:
-            hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(u), values,
-                                               chunk=chunk, stable=stable)
-            return bitops.merge_u64(hi, lo), v
-        with timing.span("vrs.count_mask"):
-            live = bitops.in_range(u, cnt)
-            masked = bitops.select_u64(live, u, bitops.max_like_u64(u))
-            # non-stable: the masked tail is the lexicographic maximum, as
-            # in sort_key_value
-            mv = values if stable else bitops.select_u32(
-                live, values, bitops.max_like_u32(values))
-        hi, lo, v = bitonic.sort_pairs_w64(*bitops.split_u64(masked), mv, cnt,
-                                           chunk=chunk, stable=stable)
-        k = bitops.merge_u64(hi, lo)
-        with timing.span("vrs.count_mask"):
-            return (bitops.select_u64(live, k, u),
-                    bitops.select_u32(live, v, values))
-
-    def _sort_bits(self, u: torch.Tensor, values, count, end_bit: int,
-                   backend: str):
-        """A sort of uint32 or uint64 keys (and values) by bits [0,
-        end_bit), stable, the keys back whole: on radix its driver; on the
-        reference backend `reference.sort_bits`; on the network the masked
-        keys (the maximum past the count) and their positions through the
-        non-stable pair carry, whose (key, position) order is the stable
-        one since the positions are distinct, then the keys and the values
-        gathered by the sorted positions."""
-        cnt = bitops.count_tensor(count, self.device)
-        _served(backend, u.numel())
-        if backend == "radix":
-            if values is None:
-                sort = radix.sort_u64 if self.wide else radix.sort_u32
-                return sort(u, count=cnt, config=self.config,
-                            end_bit=end_bit)
-            sort = radix.sort_pairs_u64 if self.wide else radix.sort_pairs_u32
-            return sort(u, values, count=cnt, config=self.config,
-                        end_bit=end_bit)
-        if backend == "reference":
-            return reference.sort_bits(u, values, end_bit, cnt)
-        masked = bitops.low_bits(u, end_bit)
-        if cnt is not None:
-            with timing.span("vrs.count_mask"):
-                live = bitops.in_range(u, cnt)
-                masked = (bitops.select_u64(live, masked,
-                                            bitops.max_like_u64(masked))
-                          if self.wide else bitops.select_u32(
-                              live, masked, bitops.max_like_u32(masked)))
-        pos = torch.arange(u.numel(), dtype=torch.int32,
-                           device=self.device).view(torch.uint32)
-        chunk = self.config.chunk_carry
-        if self.wide:
-            order = bitonic.sort_pairs_w64(*bitops.split_u64(masked), pos,
-                                           chunk=chunk, stable=False)[-1]
+        def slow(u, v=None):
+            _served(backend, u.numel())
+            return _BACKENDS[backend].sort(u, v, count=cnt, end_bit=end_bit,
+                                           stable=stable, config=self.config)
+        if not self.config.adaptive or cnt is not None or end_bit is not None:
+            out = slow(u, values)
+        elif values is None:
+            out = _adaptive_sort(u, slow)
         else:
-            order = bitonic.sort_pairs_u32(masked, pos, chunk=chunk,
-                                           stable=False)[-1]
-        order = bitops.widen_u32(order)
-        signed = torch.int64 if self.wide else torch.int32
-        k = u.view(signed)[order].view(u.dtype)
-        return k if values is None else (
-            k, values.view(torch.int32)[order].view(torch.uint32))
+            out = _adaptive_sort_pairs(u, values, slow)
+        if values is None:
+            return self._decode(out)
+        return self._decode(out[0]), out[1]
 
     # -- timing queries (analog of the timestamps, h.in:39-50) -------------
 

@@ -22,6 +22,12 @@ rules are kept exactly: the grid covers only the genuine prefix, and after
 the chunk phase local passes are clipped at the round's 2^r-chunk group
 granularity, never per chunk (see `_sort_padded`).
 
+`sort` is the backend's one entry, the Sorter's contract: it owns
+`count=` (the keys past the count masked to the maximum, the tail
+selected back), 64-bit keys (split into (hi, lo) words and merged) and
+`end_bit` (the masked keys and their positions through a pair carry,
+then a gather), and drives the carries below.
+
 `stage_times*` time each launch of the real `_sort_padded` with CUDA
 events (`utils.timing.LaunchTimer`): the per-stage split of
 `Sorter.sort_timed` and the bench's `--stages`.
@@ -37,10 +43,12 @@ from __future__ import annotations
 
 import torch
 
-from ..config import CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, cdiv
+from ..config import (CHUNK_CARRY, CHUNK_KEYS, MIN_CHUNK, SortConfig, cdiv,
+                      default_config)
 from . import bitonic_kernels as bk
 from .bitonic_kernels import KEYS, PAIRS, STABLE, W3, W4_BIG, log2
-from .bitops import check_u32, count_tensor, pad_u32
+from .bitops import (check_u32, count_tensor, low_bits, mask_past, merge_u64,
+                     pad_u32, select, signed_dtype, split_u64, widen_u32)
 from ..utils import timing
 
 # Elements a fused-rounds group may hold, on top of each carry's
@@ -162,8 +170,8 @@ def sort_u32(keys: torch.Tensor, count=None, *, chunk: int | None = None):
 
     `count` (int or 0-d tensor on the keys' device) gates units wholly past
     the live prefix to a no-op. The caller must have masked keys[count:] to
-    0xFFFFFFFF already (the sorter's indirect path does); the gate only
-    skips work. Returns a new tensor; `keys` is not modified.
+    0xFFFFFFFF already (`sort` does); the gate only skips work. Returns a
+    new tensor; `keys` is not modified.
     """
     arrs, mode, np2, C, n, cnt = _keys_carry(keys, count, chunk)
     if n:
@@ -251,6 +259,85 @@ def _w64_carry(hi, lo, values, count, chunk, stable):
     else:
         arrs.append(pad_u32(values, np2, 0xFFFFFFFF))
     return arrs, mode, np2, C, n, cnt
+
+
+# -- the front end: count=, end_bit and the key width -------------------------
+
+def _carry(keys, values, count, chunk: int, stable: bool):
+    """keys (uint32 or uint64) and values (uint32, or None) through the
+    carry of their width and kind: uint32 keys alone or with values, in
+    `sort_u32` or `sort_pairs_u32`; uint64 keys as (hi, lo) words, alone
+    in the non-stable (k, v) carry, whose order is theirs, or with values
+    in `sort_pairs_w64` (W4_BIG, or W3 with stable=False). Returns (keys,
+    values or None)."""
+    if keys.dtype != torch.uint64:
+        if values is None:
+            return sort_u32(keys, count, chunk=chunk), None
+        return sort_pairs_u32(keys, values, count, chunk=chunk, stable=stable)
+    if values is None:
+        hi, lo = sort_pairs_u32(*split_u64(keys), count, chunk=chunk,
+                                stable=False)
+        return merge_u64(hi, lo), None
+    hi, lo, values = sort_pairs_w64(*split_u64(keys), values, count,
+                                    chunk=chunk, stable=stable)
+    return merge_u64(hi, lo), values
+
+
+def sort(keys: torch.Tensor, values: torch.Tensor | None = None, *,
+         count=None, end_bit: int | None = None, stable: bool = True,
+         config: SortConfig | None = None):
+    """Ascending sort of 1-D uint32 or uint64 keys (and uint32 values)
+    through the network: the backend's one entry (`Sorter`'s contract).
+    Returns new tensors, keys or (keys, values). The chunk is the config's
+    `chunk_keys` for uint32 keys alone, else its `chunk_carry`.
+
+    `count` (an int or a 0-d tensor on the keys' device, never read on the
+    host): the keys at or past it are masked to the maximum
+    (`bitops.mask_past`), and with stable=False the values too, making the
+    masked tail the lexicographic maximum; the carry gates the units wholly
+    past the count, and the tail is selected back. A genuine maximum key
+    (with stable=False, key and value) in the prefix is bitwise
+    interchangeable with a masked one, so the prefix is exact. `end_bit`
+    (1 to the width - 1): the keys masked to bits [0, end_bit), the
+    maximum past the count, and their positions go through the non-stable
+    pair carry, whose (key, position) order is the stable one since the
+    positions are distinct; the whole keys and the values are gathered by
+    the sorted positions, and the tail comes back in place. Such a call is
+    stable whatever `stable` says."""
+    config = config or default_config()
+    chunk = (config.chunk_keys if values is None and end_bit is None
+             and keys.dtype != torch.uint64 else config.chunk_carry)
+    cnt = count_tensor(count, keys.device)
+    if end_bit is not None:
+        return _sort_low_bits(keys, values, cnt, end_bit, chunk)
+    if cnt is None:
+        k, v = _carry(keys, values, None, chunk, stable)
+        return k if values is None else (k, v)
+    with timing.span("vrs.count_mask"):
+        if values is None or stable:
+            live, k = mask_past(cnt, keys)
+            v = values
+        else:  # the values masked too: the tail the lexicographic maximum
+            live, k, v = mask_past(cnt, keys, values)
+    k, v = _carry(k, v, cnt, chunk, stable)
+    with timing.span("vrs.count_mask"):
+        k = select(live, k, keys)
+        return k if values is None else (k, select(live, v, values))
+
+
+def _sort_low_bits(keys, values, count, end_bit: int, chunk: int):
+    """`sort` by bits [0, end_bit): (masked key, position) through the
+    non-stable pair carry, then the gather."""
+    masked = low_bits(keys, end_bit)
+    if count is not None:
+        with timing.span("vrs.count_mask"):
+            masked = mask_past(count, masked)[1]
+    pos = torch.arange(keys.numel(), dtype=torch.int32,
+                       device=keys.device).view(torch.uint32)
+    order = widen_u32(_carry(masked, pos, None, chunk, stable=False)[1])
+    k = keys.view(signed_dtype(keys))[order].view(keys.dtype)
+    return k if values is None else (
+        k, values.view(torch.int32)[order].view(torch.uint32))
 
 
 # -- per-stage timing ---------------------------------------------------------

@@ -116,21 +116,9 @@ def merge_u64(hi: torch.Tensor, lo: torch.Tensor) -> torch.Tensor:
 def low_bits(u: torch.Tensor, bits: int) -> torch.Tensor:
     """uint32 or uint64 words with every bit from `bits` up cleared (CUB's
     end_bit), through the signed view; u itself at the full width."""
-    signed = torch.int64 if u.dtype == torch.uint64 else torch.int32
     if bits >= 8 * u.element_size():
         return u
-    return (u.view(signed) & ((1 << bits) - 1)).view(u.dtype)
-
-
-def max_like_u64(x: torch.Tensor) -> torch.Tensor:
-    """A uint64 tensor like x, filled with 2^64 - 1 (the key sentinel)."""
-    return torch.full_like(x.view(torch.int64), -1).view(torch.uint64)
-
-
-def select_u64(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
-    """torch.where for uint64 operands, through their int64 bit patterns."""
-    return torch.where(cond, a.view(torch.int64), b.view(torch.int64)).view(
-        torch.uint64)
+    return (u.view(signed_dtype(u)) & ((1 << bits) - 1)).view(u.dtype)
 
 
 def widen_u32(u: torch.Tensor) -> torch.Tensor:
@@ -181,6 +169,31 @@ def in_range(keys: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """The `count=` prefix of keys as a bool mask, `arange(n) < count`,
     on the card without reading the count."""
     return torch.arange(keys.numel(), device=keys.device) < count
+
+
+def signed_dtype(u: torch.Tensor) -> torch.dtype:
+    """The signed dtype of uint32 or uint64 words' bit patterns."""
+    return torch.int64 if u.dtype == torch.uint64 else torch.int32
+
+
+def select(cond: torch.Tensor, a: torch.Tensor, b: torch.Tensor):
+    """torch.where for uint32 or uint64 operands of one dtype, through
+    their signed bit patterns."""
+    signed = signed_dtype(a)
+    return torch.where(cond, a.view(signed), b.view(signed)).view(a.dtype)
+
+
+def mask_past(count: torch.Tensor, *xs: torch.Tensor):
+    """The `count=` mask of the backends that sort whole buffers: (live,
+    *masked), `live` the prefix (`in_range`) and each of xs (uint32 or
+    uint64 words, as long as the first) with every slot at or past the
+    count set to the maximum of its width, so that it sorts behind the
+    live ones. The caller sorts the masked buffers and gives the tail back
+    with `select(live, sorted, x)`."""
+    live = in_range(xs[0], count)
+    maxes = (torch.full_like(x.view(signed_dtype(x)), -1).view(x.dtype)
+             for x in xs)
+    return (live, *(select(live, x, m) for x, m in zip(xs, maxes)))
 
 
 VECTOR_BYTES = 16  # the kernels load and store 16-byte vectors

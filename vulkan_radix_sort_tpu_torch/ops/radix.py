@@ -38,7 +38,7 @@ values in input order already, and one more kernel, `restore_tail`,
 writes its keys back in place. The count is a 0-d int64 tensor that only
 the kernels read, never the host.
 
-64-bit keys (`sort_u64`, `sort_pairs_u64`), and 32-bit keys sorted by an
+64-bit keys, and 32-bit keys sorted by an
 `end_bit` that is no multiple of the digit, take the (word, position)
 path, `_sort_words`, on the same kv carries of K7 and K8, which never see
 a whole key or a mask. `split_pad` writes the low words, masked to bits
@@ -75,7 +75,7 @@ from .bitops import (VECTOR_BYTES, check_u32, count_tensor, in_range,
                      low_bits, max_like_u32, merge_u64, pad_u32, select_u32,
                      split_u64, widen_u32)
 
-# Below this size the reference backend sorts instead (`reference.sort_bits`),
+# Below this size the reference backend sorts instead (`reference.sort`),
 # as the JAX package hands n < _MIN_PALLAS_N to lax.sort (its
 # radix.py:31,58-59).
 MIN_RADIX_N = 1 << 14
@@ -416,52 +416,13 @@ def _sort_words(keys, values, count, end_bit: int, config: SortConfig):
         return gather_out(pos, keys, rec)
 
 
-def sort_u32(keys: torch.Tensor, *, count=None,
-             config: SortConfig | None = None, end_bit: int | None = None):
-    """Ascending sort of uint32 keys through the radix kernels. Returns a
-    new tensor; `keys` is not modified. With `count` (an int or a 0-d
-    tensor on the keys' device) only the first `count` keys are sorted
-    and the rest come back in place. With `end_bit` (1 to 32) the keys
-    are ordered by bits [0, end_bit) alone, stably, and come back whole:
-    ceil(end_bit / digit_bits) passes, on the (word, position) path where
-    end_bit is no multiple of the digit."""
-    config = config or default_config()
-    check_u32(keys)
-    n = keys.numel()
-    bits = _end_bit(end_bit, 32)
-    cnt = count_tensor(count, keys.device)
-    if n < MIN_RADIX_N:
-        return reference.sort_bits(keys, None, bits, cnt)
-    if bits % config.digit_bits:
-        return _sort_words(keys, None, cnt, bits, config)
-    bufs, first = _first_pass(keys, None, cnt, round_up(n, config.block))
-    x, = _passes(bufs, _shifts(bits, config), config, first)
-    return _tail(x, keys, cnt)
-
-
-def sort_pairs_u32(keys: torch.Tensor, values: torch.Tensor, *, count=None,
-                   config: SortConfig | None = None,
-                   end_bit: int | None = None):
-    """Stable key-value sort; values ride as a separate uint32 buffer per
-    pass (the reference's key-value layout, README.md:60). `count` and
-    `end_bit` as in `sort_u32`: the pairs at or past the count come back
-    in place."""
-    config = config or default_config()
-    check_u32(keys, values)
-    n = keys.numel()
-    bits = _end_bit(end_bit, 32)
-    cnt = count_tensor(count, keys.device)
-    if n < MIN_RADIX_N:
-        return reference.sort_bits(keys, values, bits, cnt)
-    if bits % config.digit_bits:
-        return _sort_words(keys, values, cnt, bits, config)
-    bufs, first = _first_pass(keys, values, cnt, round_up(n, config.block))
-    x, v = _passes(bufs, _shifts(bits, config), config, first)
-    return _tail(x, keys, cnt), v[:n]
-
-
-def _check_u64(keys, values=None) -> None:
-    if keys.dtype != torch.uint64 or keys.dim() != 1:
+def _check(keys, values) -> None:
+    """Refuse what the passes cannot sort: keys other than 1-D uint32 or
+    uint64, values other than uint32 of the keys' shape and device."""
+    if keys.dtype != torch.uint64:
+        check_u32(*((keys,) if values is None else (keys, values)))
+        return
+    if keys.dim() != 1:
         raise TypeError("expected 1-D uint64 keys")
     if values is not None:
         check_u32(values)
@@ -469,34 +430,38 @@ def _check_u64(keys, values=None) -> None:
             raise ValueError("keys and values must share shape and device")
 
 
-def sort_u64(keys: torch.Tensor, *, count=None,
-             config: SortConfig | None = None, end_bit: int | None = None):
-    """Ascending sort of uint64 keys on the (word, position) path: by bits
-    [0, end_bit) (1 to 64, every bit by default), stably, the keys back
-    whole; `count` as in `sort_u32`. min(4, ceil(end_bit / 8)) passes of
-    the low words, then ceil((end_bit - 32) / 8) of the high words, at
-    8-bit digits."""
-    config = config or default_config()
-    _check_u64(keys)
-    bits = _end_bit(end_bit, 64)
-    cnt = count_tensor(count, keys.device)
-    if keys.numel() < MIN_RADIX_N:
-        return reference.sort_bits(keys, None, bits, cnt)
-    return _sort_words(keys, None, cnt, bits, config)
+def sort(keys: torch.Tensor, values: torch.Tensor | None = None, *,
+         count=None, end_bit: int | None = None, stable: bool = True,
+         config: SortConfig | None = None):
+    """Stable ascending sort of uint32 or uint64 keys (and uint32 values,
+    which ride as a separate buffer a pass, the reference's key-value
+    layout, README.md:60) through the radix kernels: the backend's one
+    entry (`Sorter`'s contract; `stable` is unread, every pass is stable).
+    Returns new tensors, keys or (keys, values); the inputs are not
+    modified. With `count` (an int or a 0-d tensor on the keys' device)
+    only the first `count` keys are sorted and the pairs at or past it
+    come back in place. With `end_bit` (1 to the width) the keys are
+    ordered by bits [0, end_bit) alone, stably, and come back whole.
 
-
-def sort_pairs_u64(keys: torch.Tensor, values: torch.Tensor, *, count=None,
-                   config: SortConfig | None = None,
-                   end_bit: int | None = None):
-    """Stable key-value sort of uint64 keys and uint32 values, as
-    `sort_u64`."""
+    n < MIN_RADIX_N goes to `reference.sort`. uint64 keys, and uint32
+    keys by an end bit that is no multiple of the digit, take the (word,
+    position) path (`_sort_words`: min(4, ceil(end_bit / 8)) passes of the
+    low words, then ceil((end_bit - 32) / 8) of the high words, at 8-bit
+    digits); other uint32 keys ceil(end_bit / digit_bits) passes of their
+    own, the first reading the caller's buffers (`_first_pass`)."""
     config = config or default_config()
-    _check_u64(keys, values)
-    bits = _end_bit(end_bit, 64)
+    _check(keys, values)
+    n = keys.numel()
+    bits = _end_bit(end_bit, 8 * keys.element_size())
     cnt = count_tensor(count, keys.device)
-    if keys.numel() < MIN_RADIX_N:
-        return reference.sort_bits(keys, values, bits, cnt)
-    return _sort_words(keys, values, cnt, bits, config)
+    if n < MIN_RADIX_N:
+        return reference.sort(keys, values, count=cnt, end_bit=end_bit)
+    if keys.dtype == torch.uint64 or bits % config.digit_bits:
+        return _sort_words(keys, values, cnt, bits, config)
+    bufs, first = _first_pass(keys, values, cnt, round_up(n, config.block))
+    out = _passes(bufs, _shifts(bits, config), config, first)
+    x = _tail(out[0], keys, cnt)
+    return x if values is None else (x, out[1][:n])
 
 
 def stage_times(keys: torch.Tensor, config: SortConfig,

@@ -221,14 +221,8 @@ def _local_sort(keys, values=None, config: SortConfig | None = None,
                 use_kernels: bool = False):
     """Stable local sort: the network at the config's per-kind chunk, or
     the torch.sort reference."""
-    cfg = config if config is not None else default_config()
-    if values is None:
-        if use_kernels:
-            return bitonic.sort_u32(keys, chunk=cfg.chunk_keys)
-        return reference.sort_keys(keys)
-    if use_kernels:
-        return bitonic.sort_pairs_u32(keys, values, chunk=cfg.chunk_carry)
-    return reference.sort_pairs(keys, values)
+    return (bitonic if use_kernels else reference).sort(keys, values,
+                                                         config=config)
 
 
 def _sort_arrs(arrs, config, use_kernels):
@@ -485,7 +479,7 @@ def _merge_keys_halves(sA, sB, config, use_kernels: bool):
     m = sA.numel()
     if use_kernels and 2 * m >= MIN_CHUNK:
         return _bitonic_merge_halves(sA, sB, config)
-    return reference.sort_keys(torch.cat([sA, sB]))[:m]
+    return reference.sort(torch.cat([sA, sB]))[:m]
 
 
 def _overlap(arrs, sizes, split: int, g: _Group, mesh, m: int, slack: int,
